@@ -13,8 +13,10 @@ script then exits non-zero without its last line.  Phases:
    card, at the head geometries of the serving path (LLaMA-7B verify
    H=Kh=32 D=128; SSM decode H=12 D=64 and H=16 D=96), with bf16, int8, fp8
    and float32 pools, linear and tree masks, and edge cases (idle rows,
-   padding queries, trailing padding entries, ancestor bit 31);
-4. the main path: the port's SpinEngine serving the mix workload with
+   padding queries, trailing padding entries, ancestor bit 31; for the
+   dense kernels interleaved packed segments, padding cells, rows of
+   length 0, cache lengths not a multiple of 32);
+4. the paged main path: the port's SpinEngine serving the mix workload with
    LLaMA-7B (32 layers, full width) and the SSMs LLaMA-68M/265M/616M at
    full width, random bf16 weights, paged bf16 KV, fused kernels on.  An
    untimed pass warms every shape up and keeps the kernels' largest
@@ -22,18 +24,30 @@ script then exits non-zero without its last line.  Phases:
    to 0 before and read after each (the first is the main path's run);
    then one run under ``torch.profiler`` for the device's busy time, read
    against the timed runs' wall time;
-5. losslessness in float32 with the LLM cut to 4 layers.  With the
+5. the dense main path: the same zoo and workload on the dense KV layout
+   (``kv_layout="dense"``, packed verify through ``verify_attention``, 32
+   launches per slot); one untimed pass keeping the kernel's largest
+   input, three timed runs (launch counts as in phase 4);
+6. losslessness in float32 with the LLM cut to 4 layers.  With the
    reference initializer, the fused and the gather (``fused_kernels
    off``) paths are both held against plain greedy decoding and their
    first divergences reported; with the q/k projections at fan_in =
-   d_model (see ``unit_attention``) the fused path's tokens must equal
-   greedy decoding (a mismatch passes only where the reference's top-2
-   logit gap is below 1e-4);
-6. chunked prefill (64-token chunks) with int8 KV and tree speculation at
+   d_model (see ``unit_attention``) the fused path's tokens, and then the
+   dense layout's, must equal greedy decoding (a mismatch passes only
+   where the reference's top-2 logit gap is below 1e-4);
+7. chunked prefill (64-token chunks) with int8 KV and tree speculation at
    reduced LLM depth, so that chunk appends (T > W + 1), the dequant path
    and the tree-masked verify launch;
-7. timing of each kernel on the largest call the main path made (its own
-   inputs, kept in phase 4): kernel, plain version and one PyTorch
+8. the ops path: the public kernel API (``kernels/ops.py``) of the three
+   kernels no serving path runs, on the main paths' data: the paged main
+   path's largest verify call (``paged_verify_attention``, the same inputs
+   as ``fused_paged_verify``), the first query of its largest decode call
+   (``paged_decode_attention``) and the last layer of LLaMA-7B's dense K/V
+   grid as phase 5's untimed pass left it, each row at its last request's
+   length, with a seeded random query (``decode_attention``), launch counts
+   as in phase 4;
+9. timing of each kernel on the largest call its path made (its own
+   inputs, kept in phases 4, 5 and 8): kernel, plain version and one PyTorch
    library call (scaled_dot_product_attention on the gathered K/V, a
    yardstick the port never calls), each the median of individually timed
    launches with the L2 cache flushed before each; and the bound, the
@@ -71,22 +85,38 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.configs import spin_llama  # noqa: E402
 from repro_torch.core import spec_decode as sd  # noqa: E402
 from repro_torch.data.workloads import make_workload  # noqa: E402
-from repro_torch.kernels import (build, cases, fused_decode,  # noqa: E402
-                                 fused_verify, ops, quant)
+from repro_torch.kernels import (build, cases,  # noqa: E402
+                                 decode_attention, fused_decode,
+                                 fused_verify, ops, paged_attention, quant,
+                                 verify_attention)
 from repro_torch.kernels.ref import tree_mask_term  # noqa: E402
 from repro_torch.launch.serve import make_selector  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, SpinEngine  # noqa: E402
+from repro_torch.serving.pool import DenseCachePool  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 TIMED_RUNS = 3
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+CSRC = "src/repro_torch/kernels/csrc/"
+# name -> (source, the TPU kernel it replaces, the path that launches it)
 SOURCES = {
-    "fused_paged_verify": ("src/repro_torch/kernels/csrc/fused_verify.cu",
-                           "src/repro/kernels/fused_verify.py:43"),
-    "fused_paged_decode": ("src/repro_torch/kernels/csrc/fused_decode.cu",
-                           "src/repro/kernels/fused_decode.py:41"),
+    "fused_paged_verify": (CSRC + "fused_verify.cu",
+                           "src/repro/kernels/fused_verify.py:43", "paged"),
+    "fused_paged_decode": (CSRC + "fused_decode.cu",
+                           "src/repro/kernels/fused_decode.py:41", "paged"),
+    "verify_attention": (CSRC + "verify_attention.cu",
+                         "src/repro/kernels/verify_attention.py:37", "dense"),
+    "decode_attention": (CSRC + "decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:25", "ops"),
+    "paged_decode_attention": (CSRC + "paged_attention.cu",
+                               "src/repro/kernels/paged_attention.py:56",
+                               "ops"),
+    "paged_verify_attention": (CSRC + "paged_attention.cu",
+                               "src/repro/kernels/paged_attention.py:178",
+                               "ops"),
 }
+PAGED = [n for n, (_, _, path) in SOURCES.items() if path == "paged"]
 
 
 def log(*a):
@@ -174,6 +204,52 @@ def verify_work(a):
     return nbytes, 4 * D * H * slots
 
 
+def _segment_slots(kv_seg, q_seg):
+    """Attended slots summed over the queries (each query meets the slots
+    of its own segment; causality not subtracted) and the slots of the
+    segments some query carries."""
+    kv_seg, q_seg = kv_seg.cpu().long(), q_seg.cpu().long()
+    n = int(max(kv_seg.max(), q_seg.max())) + 2
+    per_seg = torch.bincount(kv_seg[kv_seg >= 0], minlength=n)
+    qs = q_seg[q_seg >= 0]
+    return int(per_seg[qs].sum()), int(per_seg[torch.unique(qs)].sum())
+
+
+def dense_verify_work(a):
+    """verify_attention: the K/V of the segments the queries carry, every
+    slot's tags, the query side and the output once."""
+    Tq, H, D = a["q"].shape
+    Tkv, Kh = a["k"].shape[:2]
+    attended, cells = _segment_slots(a["kv_seg"], a["q_seg"])
+    ntags = 3 if a["q_anc"] is not None else 2
+    nbytes = (cells * Kh * D * a["k"].element_size() * 2
+              + (Tkv + Tq) * 4 * ntags
+              + 2 * a["q"].numel() * a["q"].element_size())
+    return nbytes, 4 * D * H * attended
+
+
+def dense_decode_work(a):
+    B, H, D = a["q"].shape
+    S, Kh = a["k"].shape[1:3]
+    live = int(a["lengths"].cpu().clamp(0, S).sum())
+    nbytes = (live * Kh * D * a["k"].element_size() * 2 + B * 4
+              + 2 * a["q"].numel() * a["q"].element_size())
+    return nbytes, 4 * D * H * live
+
+
+def paged_decode_work(a):
+    B, H, D = a["q"].shape
+    bs, Kh = a["k_pool"].shape[1], a["k_pool"].shape[2]
+    lens = a["lengths"].cpu().clamp(min=0)
+    live = int(lens.sum())
+    per = (Kh * D * a["k_pool"].element_size() * 2
+           + (Kh * 8 if a["k_scale"] is not None else 0))
+    blocks = int(torch.div(lens + bs - 1, bs, rounding_mode="floor").sum())
+    nbytes = (live * per + blocks * 4 + B * 4
+              + 2 * a["q"].numel() * a["q"].element_size())
+    return nbytes, 4 * D * H * live
+
+
 def decode_work(a):
     B, T, H, D = a["q"].shape
     bs, Kh = a["k_pool"].shape[1], a["k_pool"].shape[2]
@@ -247,6 +323,46 @@ def library_decode(a):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m)
 
 
+def library_dense_verify(a):
+    """One SDPA call on the flat buffer with the boolean Eq. 13 mask."""
+    kv_seg, kv_pos = a["kv_seg"], a["kv_pos"]
+    mask = ((a["q_seg"][:, None] == kv_seg[None]) & (kv_seg[None] >= 0)
+            & (kv_pos[None] <= a["q_pos"][:, None]))
+    if a["kv_node"] is not None:
+        mask &= tree_mask_term(a["q_anc"][:, None], a["kv_node"][None])
+    G = a["q"].shape[1] // a["k"].shape[1]
+    q = a["q"].transpose(0, 1)[None]
+    k = a["k"].to(a["q"].dtype).repeat_interleave(G, 1).transpose(0, 1)[None]
+    v = a["v"].to(a["q"].dtype).repeat_interleave(G, 1).transpose(0, 1)[None]
+    m = mask[None, None]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+
+
+def _library_dense_decode(q, k, v, lengths):
+    B, S = k.shape[:2]
+    G = q.shape[1] // k.shape[2]
+    mask = (torch.arange(S, device=q.device)[None] < lengths[:, None])
+    q = q[:, :, None]
+    k = k.to(q.dtype).repeat_interleave(G, 2).transpose(1, 2)
+    v = v.to(q.dtype).repeat_interleave(G, 2).transpose(1, 2)
+    m = mask[:, None, None]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+
+
+def library_dense_decode(a):
+    return _library_dense_decode(a["q"], a["k"], a["v"], a["lengths"])
+
+
+def library_paged_decode(a):
+    """SDPA on the rows' blocks gathered dense (the gather is set-up)."""
+    bt = a["block_tables"]
+    B, NB = bt.shape
+    bs = a["k_pool"].shape[1]
+    k, v = (t.reshape(B, NB * bs, *t.shape[3:])
+            for t in _gathered(a, bt.clamp(min=0).long()))
+    return _library_dense_decode(a["q"], k, v, a["lengths"])
+
+
 # name -> (kernel wrapper, plain version, work counter, library call)
 KERNELS = {
     "fused_paged_verify": (fused_verify.fused_paged_verify,
@@ -255,6 +371,18 @@ KERNELS = {
     "fused_paged_decode": (fused_decode.fused_paged_decode,
                            fused_decode.fused_paged_decode_plain,
                            decode_work, library_decode),
+    "verify_attention": (verify_attention.verify_attention,
+                         verify_attention.verify_attention_plain,
+                         dense_verify_work, library_dense_verify),
+    "decode_attention": (decode_attention.decode_attention,
+                         decode_attention.decode_attention_plain,
+                         dense_decode_work, library_dense_decode),
+    "paged_decode_attention": (paged_attention.paged_decode_attention,
+                               paged_attention.paged_decode_attention_plain,
+                               paged_decode_work, library_paged_decode),
+    "paged_verify_attention": (paged_attention.paged_verify_attention,
+                               paged_attention.paged_verify_attention_plain,
+                               verify_work, library_verify),
 }
 
 
@@ -285,10 +413,12 @@ def measure(name, a, timer):
 
 
 def shape_of(a):
+    kv = a.get("k_pool", a.get("k"))
     return {n: list(t.shape) for n, t in a.items() if t is not None
-            and n in ("q", "k_pool", "block_ids", "block_tables")} | {
-        "kv": str(a["k_pool"].dtype).replace("torch.", ""),
-        "tree": a.get("block_node") is not None}
+            and n in ("q", "k_pool", "k", "block_ids", "block_tables")} | {
+        "kv": str(kv.dtype).replace("torch.", ""),
+        "tree": (a.get("block_node") is not None
+                 or a.get("kv_node") is not None)}
 
 
 def phase_kernel_checks(timer, report):
@@ -314,6 +444,38 @@ def phase_kernel_checks(timer, report):
     todo.append(("fused_paged_decode", "llama-7b verify-unpacked T=5 f32",
                  cases.decode_inputs(gen, rows, 5, 32, 32, 128, 16, "f32",
                                      pad_queries=False)))
+    # verify_attention: dense packed verify (interleaved segments, padding
+    # cells and queries) at the LLaMA-7B and SSM head geometries
+    for kv, tree, H, Kh, D, tag in (
+            ("bf16", False, 32, 32, 128, "llama-7b"),
+            ("f32", False, 32, 32, 128, "llama-7b"),
+            ("bf16", True, 32, 32, 128, "llama-7b"),
+            ("bf16", True, 16, 8, 96, "llama-616m-geometry GQA 2"),
+            ("f32", True, 12, 12, 64, "llama-68m-geometry")):
+        todo.append(("verify_attention",
+                     f"{tag} {kv} {'tree' if tree else 'linear'}",
+                     cases.dense_verify_inputs(gen, lens7b, 4, H, Kh, D, kv,
+                                               tree)))
+    dense_lens = [0, 37, 250, 131, 1, 96]     # S = 250: not a multiple of 32
+    for kv, H, Kh, D, tag in (("bf16", 32, 32, 128, "llama-7b"),
+                              ("f32", 32, 32, 128, "llama-7b"),
+                              ("f32", 16, 4, 96, "D 96 GQA 4"),
+                              ("bf16", 12, 12, 64, "llama-68m")):
+        todo.append(("decode_attention", f"{tag} S=250 {kv}",
+                     cases.dense_decode_inputs(gen, dense_lens, 250, H, Kh, D,
+                                               kv)))
+    for kv in ("bf16", "int8", "fp8"):
+        todo.append(("paged_decode_attention", f"llama-7b {kv}",
+                     cases.paged_decode_inputs(gen, rows, 32, 32, 128, 16,
+                                               kv)))
+    todo.append(("paged_decode_attention", "llama-616m bf16",
+                 cases.paged_decode_inputs(gen, rows, 16, 16, 96, 16, "bf16")))
+    for kv, tree in (("bf16", False), ("int8", False), ("fp8", True),
+                     ("bf16", True), ("int8", True)):
+        todo.append(("paged_verify_attention",
+                     f"llama-7b {kv} {'tree' if tree else 'linear'}",
+                     cases.verify_inputs(gen, lens7b, 4, 32, 32, 128, 16, kv,
+                                         tree)))
     failed = []
     for name, label, a in todo:
         rec = measure(name, a, timer)
@@ -400,8 +562,9 @@ class Tap:
         bound = inspect.signature(self.fn).bind(*args, **kw)
         bound.apply_defaults()
         a = dict(bound.arguments)
-        a.pop("config", None)
-        lst = a.get("block_ids", a.get("block_tables"))
+        for tile in ("config", "bq", "bk"):
+            a.pop(tile, None)
+        lst = next(a[n] for n in ("block_ids", "block_tables", "k") if n in a)
         size = a["q"].numel() * lst.numel()
         if size > self.size:
             self.size = size
@@ -435,7 +598,7 @@ def phase_main_path(report):
         build.LAUNCHES.clear()
         eng, stats, wall = serve(llm, ssms, 6, 0.3, capacity=6)
         launches = dict(build.LAUNCHES)
-        for name in SOURCES:
+        for name in PAGED:
             check(launches.get(name, 0) > 0, f"{name} never launched")
         runs.append(dict(wall_s=wall, slots=len(eng.slot_log),
                          accepted_tokens=stats["accepted_tokens"],
@@ -477,7 +640,89 @@ def phase_main_path(report):
     report["main_path"] = line
     del eng, llm, ssms, prof
     torch.cuda.empty_cache()
-    return main["launches"], captured
+    return main["launches"], captured, wall_slot * 1e3
+
+
+def phase_dense_main_path(report, paged_ms_per_slot):
+    """The main path's zoo and workload on the dense KV layout: packed
+    verify through ``verify_attention`` on every LLM layer of every slot,
+    drafts and catch-up in plain PyTorch over the dense grids."""
+    llm, ssms = full_zoo("bfloat16")
+    log(f"dense main path: {llm.cfg.name} {llm.cfg.n_layers} layers d "
+        f"{llm.cfg.d_model}; SSMs "
+        + ", ".join(f"{b.cfg.name} ({b.cfg.n_layers}x{b.cfg.d_model})"
+                    for b in ssms) + "; bf16 weights, dense bf16 KV")
+    kw = dict(capacity=6, kv_layout="dense", fused_kernels="off")
+    evict, row_len = DenseCachePool.evict, {}
+
+    def keep_length(pool, rid):
+        if pool.cfg is llm.cfg:
+            row = pool.row_of[rid]
+            row_len[row] = int(pool.lengths[row])
+        evict(pool, rid)
+
+    DenseCachePool.evict = keep_length
+    try:
+        with Tap(ops, "verify_attention") as tap:
+            eng, _, _ = serve(llm, ssms, 6, 0.3, **kw)
+    finally:
+        DenseCachePool.evict = evict
+    check(any(row_len.values()), "no dense LLM row was evicted")
+    captured = tap.best
+    # The LLM's last layer of K/V as the run left it, each row with the
+    # length its last request had: phase 8's decode_attention input.
+    cache, top = eng.llm_pool.cache, llm.cfg.n_layers - 1
+    B, _, Kh, D = cache["k"][top].shape
+    grid = dict(
+        q=torch.randn((B, llm.cfg.n_heads, D),
+                      generator=torch.Generator().manual_seed(5))
+        .to(cache["k"].dtype).to(cache["k"].device),
+        k=cache["k"][top].clone(), v=cache["v"][top].clone(),
+        lengths=torch.tensor([row_len.get(b, 0) for b in range(B)],
+                             dtype=torch.int32, device=cache["k"].device))
+    del eng, cache
+    runs = []
+    for _ in range(TIMED_RUNS):
+        build.LAUNCHES.clear()
+        eng, stats, wall = serve(llm, ssms, 6, 0.3, **kw)
+        launches = dict(build.LAUNCHES)
+        verified = sum(1 for rec in eng.slot_log if rec.get("active"))
+        check(stats["kv_layout"] == "dense", "the engine did not go dense")
+        check(launches.get("verify_attention", 0)
+              == verified * llm.cfg.n_layers > 0,
+              f"verify_attention launched {launches} times over {verified} "
+              f"verify slots of {llm.cfg.n_layers} layers")
+        check(set(launches) == {"verify_attention"},
+              f"the dense path launched other kernels: {launches}")
+        runs.append(dict(wall_s=wall, slots=len(eng.slot_log),
+                         verify_slots=verified,
+                         accepted_tokens=stats["accepted_tokens"],
+                         launches=launches, stats=stats))
+        del eng
+    main = runs[0]
+    walls = [r["wall_s"] for r in runs]
+    wall_slot = statistics.median(r["wall_s"] / r["slots"] for r in runs)
+    line = dict(goodput_sim=main["stats"]["goodput_sim"], wall_s=walls,
+                wall_spread=(max(walls) - min(walls))
+                / statistics.median(walls),
+                tokens_per_s_wall=[r["accepted_tokens"] / r["wall_s"]
+                                   for r in runs],
+                accepted_tokens=[r["accepted_tokens"] for r in runs],
+                slots=[r["slots"] for r in runs],
+                finished=main["stats"]["scheduler"]["finished"],
+                launches=main["launches"],
+                launches_per_slot={k: v / main["slots"]
+                                   for k, v in main["launches"].items()},
+                wall_ms_per_slot=wall_slot * 1e3,
+                paged_wall_ms_per_slot=paged_ms_per_slot,
+                llm_layers=llm.cfg.n_layers, depth_cut=False)
+    log("dense main path stats (warm; launches from the first timed run; "
+        "paged wall ms per slot from this call's phase 4) "
+        + json.dumps(line))
+    report["dense_main_path"] = line
+    del llm, ssms
+    torch.cuda.empty_cache()
+    return main["launches"], captured, grid
 
 
 def greedy_reference(llm, prompt, n_new):
@@ -520,14 +765,14 @@ def unit_attention(bundles):
             p["wk"].mul_(math.sqrt(b.cfg.n_kv_heads / d))
 
 
-def lossless_run(llm, ssms, fused_kernels, refs=None):
+def lossless_run(llm, ssms, fused_kernels, refs=None, kv_layout="paged"):
     """Serve the float32 zoo and hold each request's tokens against plain
     greedy decoding (computed here unless ``refs`` are given); a
     divergence is the first differing token and the reference's top-2
     logit gap there."""
     build.LAUNCHES.clear()
     eng, _, wall = serve(llm, ssms, 6, 0.3, capacity=6,
-                         fused_kernels=fused_kernels)
+                         fused_kernels=fused_kernels, kv_layout=kv_layout)
     launches = dict(build.LAUNCHES)
     if refs is None:
         refs = {r.rid: greedy_reference(llm, r.prompt, r.max_new)
@@ -542,7 +787,8 @@ def lossless_run(llm, ssms, fused_kernels, refs=None):
             div.append(dict(rid=r.rid, index=i, gap=gaps[i],
                             got=got[i] if i < len(got) else None,
                             want=want[i]))
-    line = dict(fused_kernels=fused_kernels, requests=len(tokens),
+    line = dict(kv_layout=kv_layout, fused_kernels=fused_kernels,
+                requests=len(tokens),
                 exact=len(tokens) - len(div), divergences=div,
                 launches=launches, wall_s=wall)
     return line, refs, tokens
@@ -560,13 +806,18 @@ def phase_lossless(report):
         "gather paths, reported, not held to the limit) "
         + json.dumps(ref_init))
     unit_attention([llm] + ssms)
-    unit, _, _ = lossless_run(llm, ssms, "on")
-    bad = [d for d in unit["divergences"] if d["gap"] >= 1e-4]
-    check(not bad, f"tokens differ from greedy decoding at top-2 gaps "
-          f">= 1e-4: {bad}")
-    log("lossless (float32, LLM 4 layers, unit-scale attention) "
-        + json.dumps(unit))
-    report["lossless"] = dict(reference_init=ref_init, unit_attention=unit)
+    unit, refs, _ = lossless_run(llm, ssms, "on")
+    dense, _, _ = lossless_run(llm, ssms, "off", refs, kv_layout="dense")
+    check(dense["launches"].get("verify_attention", 0) > 0,
+          "the dense float32 run never launched verify_attention")
+    for run in (unit, dense):
+        bad = [d for d in run["divergences"] if d["gap"] >= 1e-4]
+        check(not bad, f"{run['kv_layout']}: tokens differ from greedy "
+              f"decoding at top-2 gaps >= 1e-4: {bad}")
+        log(f"lossless {run['kv_layout']} (float32, LLM 4 layers, "
+            f"unit-scale attention) " + json.dumps(run))
+    report["lossless"] = dict(reference_init=ref_init, unit_attention=unit,
+                              dense_unit_attention=dense)
     del llm, ssms
     torch.cuda.empty_cache()
 
@@ -578,7 +829,7 @@ def phase_chunked(report):
                              prefill_chunk=64, kv_dtype="int8",
                              spec_shape="tree", spec_branch=2)
     launches = dict(build.LAUNCHES)
-    for name in SOURCES:
+    for name in PAGED:
         check(launches.get(name, 0) > 0, f"{name} never launched")
     check(stats["scheduler"]["prefill_grants"] > len(eng.requests),
           "no prompt was split into chunks")
@@ -592,6 +843,54 @@ def phase_chunked(report):
     report["chunked"] = line
     del eng, llm, ssms
     torch.cuda.empty_cache()
+
+
+def phase_ops_path(report, paged_verify, paged_decode, dense_grid):
+    """The public kernel API of the three kernels no serving path runs,
+    on the main paths' data (see the module docstring, phase 8).  Returns
+    the launches and each kernel's inputs."""
+    a = paged_decode
+    B = a["q"].shape[0]
+    bs = a["k_pool"].shape[1]
+    cells = (a["block_tables"] >= 0).sum(1, dtype=torch.int32) * bs
+    lengths = torch.where(a["q_seg"][:, 0] >= 0, a["q_pos"][:, 0] + 1, 0)
+    inputs = {
+        "paged_verify_attention": paged_verify,
+        "paged_decode_attention": dict(
+            q=a["q"][:, 0].contiguous(), k_pool=a["k_pool"],
+            v_pool=a["v_pool"], block_tables=a["block_tables"],
+            lengths=torch.minimum(lengths, cells).to(torch.int32)
+            .contiguous(), k_scale=a["k_scale"], v_scale=a["v_scale"]),
+        "decode_attention": dense_grid,
+    }
+    v = inputs["paged_verify_attention"]
+    d = inputs["paged_decode_attention"]
+    e = inputs["decode_attention"]
+    build.LAUNCHES.clear()
+    outs = [
+        ops.paged_verify_attention(
+            v["q"], v["k_pool"], v["v_pool"], v["pool_seg"], v["pool_pos"],
+            v["q_seg"], v["q_pos"], v["block_ids"], v["block_owner"],
+            v["k_scale"], v["v_scale"], q_anc=v["q_anc"],
+            block_node=v["block_node"]),
+        ops.paged_decode_attention(d["q"], d["k_pool"], d["v_pool"],
+                                   d["block_tables"], d["lengths"],
+                                   d["k_scale"], d["v_scale"]),
+        ops.decode_attention(e["q"], e["k"], e["v"], e["lengths"])]
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    for name in inputs:
+        check(launches.get(name, 0) > 0, f"{name} never launched")
+    check(all(bool(torch.isfinite(o.float()).all()) for o in outs),
+          "the ops path gave non-finite values")
+    line = dict(launches=launches, shapes={n: shape_of(x)
+                                           for n, x in inputs.items()},
+                paged_decode_lengths=d["lengths"].tolist(),
+                dense_decode_lengths=e["lengths"].tolist(), rows=B)
+    log("ops path (kernels/ops.py on the main paths' data) "
+        + json.dumps(line))
+    report["ops_path"] = line
+    return launches, inputs
 
 
 # --------------------------------------------------------------- main --
@@ -630,29 +929,38 @@ def main():
         return out
 
     timed(phase_kernel_checks, timer, report)
-    launches, captured = timed(phase_main_path, report)
+    paged_launches, captured, paged_ms = timed(phase_main_path, report)
+    dense_launches, dense_captured, dense_grid = timed(
+        phase_dense_main_path, report, paged_ms)
     timed(phase_lossless, report)
     timed(phase_chunked, report)
+    ops_launches, ops_inputs = timed(
+        phase_ops_path, report, captured["fused_paged_verify"],
+        captured["fused_paged_decode"], dense_grid)
+    launches = {"paged": paged_launches, "dense": dense_launches,
+                "ops": ops_launches}
+    inputs = {**captured, "verify_attention": dense_captured, **ops_inputs}
 
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
-        a = captured[name]
+    for name, (source, replaces, path) in SOURCES.items():
+        a = inputs[name]
         rec = measure(name, a, timer)
         errs = [c["max_abs_err"] for c in report["checks"]
                 if c["kernel"] == name] + [rec["max_abs_err"]]
-        log(f"main-path inputs {name} shape={json.dumps(shape_of(a))} "
+        log(f"{path}-path inputs {name} shape={json.dumps(shape_of(a))} "
             f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
             f"library_ms={rec['library_ms']:.4f} bound_ms="
             f"{rec['bound_ms']:.5f} ({rec['bound_by']}) "
             f"err={rec['max_abs_err']:.3g} max|plain|={rec['ref_max']:.3g} "
             f"tol={rec['tol']:.3g}")
-        check(rec["ok"], f"{name} disagrees on the main path's inputs")
+        check(rec["ok"], f"{name} disagrees on the {path} path's inputs")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=max(errs), ms=rec["ms"],
+            launches=launches[path][name], path=path,
+            max_abs_err=max(errs), ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
-        report[f"main_path_inputs_{name}"] = dict(shape=shape_of(a), **rec)
+        report[f"{path}_path_inputs_{name}"] = dict(shape=shape_of(a), **rec)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

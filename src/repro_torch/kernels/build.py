@@ -8,8 +8,10 @@ changed source is rebuilt and a stale library is never loaded.  The build
 happens at first use; :func:`build_all` starts one ``nvcc`` per source, all
 at once, and waits for them.
 
-The wrappers (``fused_verify.py``, ``fused_decode.py``) share the argument
-checks below and count their launches in :data:`LAUNCHES`.
+The wrappers (``fused_verify.py``, ``fused_decode.py``,
+``verify_attention.py``, ``decode_attention.py``, ``paged_attention.py``)
+share the argument checks below and count their launches in
+:data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("fused_verify", "fused_decode")
+KERNELS = ("fused_verify", "fused_decode", "verify_attention",
+           "decode_attention", "paged_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -166,19 +169,36 @@ def check_int(name, t, shape, device):
         _check(name, t, shape, (torch.int32,), device)
 
 
-def check_pools(q, k_pool, v_pool, pool_seg, pool_pos, k_scale, v_scale):
-    """Checks shared by both kernels; returns (q dtype code, kv code)."""
+def check_heads(q, k):
+    """Device and head geometry of a query / key pair (heads on axis -2,
+    head dim last)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
-    N, bs, Kh, D = k_pool.shape
-    H = q.shape[-2]
+    H, Kh, D = q.shape[-2], k.shape[-2], k.shape[-1]
     if q.shape[-1] != D or D > MAX_D or H % Kh:
         raise ValueError(f"unsupported head geometry H={H} Kh={Kh} D={D} "
                          f"(q head dim {q.shape[-1]}, D <= {MAX_D})")
     if (H // Kh) > MAX_ROWS:
         raise ValueError(f"GQA group {H // Kh} exceeds {MAX_ROWS} rows/CTA")
     _check("q", q, q.shape, tuple(Q_CODES), dev)
+
+
+def check_dense(q, k, v, k_shape):
+    """Checks of the dense kernels (float K/V, no scales); returns (q dtype
+    code, kv code)."""
+    check_heads(q, k)
+    _check("k", k, k_shape, (torch.float32, torch.bfloat16), q.device)
+    _check("v", v, k_shape, (k.dtype,), q.device)
+    return Q_CODES[q.dtype], KV_CODES[k.dtype]
+
+
+def check_pools(q, k_pool, v_pool, pool_seg, pool_pos, k_scale, v_scale):
+    """Checks shared by the paged kernels; returns (q dtype code, kv
+    code).  ``pool_seg``/``pool_pos`` may be None (paged decode)."""
+    check_heads(q, k_pool)
+    dev = q.device
+    N, bs, Kh, D = k_pool.shape
     _check("k_pool", k_pool, (N, bs, Kh, D), tuple(KV_CODES), dev)
     _check("v_pool", v_pool, (N, bs, Kh, D), (k_pool.dtype,), dev)
     check_int("pool_seg", pool_seg, (N, bs), dev)

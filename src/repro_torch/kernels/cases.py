@@ -1,8 +1,10 @@
-"""Synthetic inputs for the paged attention kernels, made on the CPU from a
+"""Synthetic inputs for the attention kernels, made on the CPU from a
 ``torch.Generator`` and moved to ``device``: the geometry of the serving
 path (fragmented block placement, idle rows, bucket-padding queries,
 trailing padding entries, rolled-back slots, tree node tags and 32-bit
-ancestor masks) for checking a kernel against its plain version.  Test
+ancestor masks; for the dense kernels interleaved packed fragments,
+padding cells, zero-length rows) for checking a kernel against its plain
+version.  Test
 support only: ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` use it, no
 serving code imports it, and it is not part of the package's API.  ``kv``
 names the pool
@@ -112,5 +114,85 @@ def decode_inputs(gen, lens, T, H, Kh, D, bs, kv, pad_queries=True,
     out = dict(q=q, k_pool=k, v_pool=v, pool_seg=pool_seg, pool_pos=pool_pos,
                q_seg=q_seg, q_pos=q_pos, block_tables=bt, k_scale=ks,
                v_scale=vs)
+    return {n: None if t is None else t.to(device).contiguous()
+            for n, t in out.items()}
+
+
+def _floats(gen, shape, kv):
+    return torch.randn(shape, generator=gen).to(
+        torch.float32 if kv == "f32" else torch.bfloat16)
+
+
+def dense_verify_inputs(gen, lens, W, H, Kh, D, kv, tree, pad_cells=12,
+                        device="cuda"):
+    """Flat packed buffer for ``verify_attention``: each request's context
+    cut into up to four fragments, the fragments of all requests shuffled
+    (interleaved segments) with padding cells (seg -1, pos -1) among them,
+    then every request's W + 1 new slots.  Queries: W + 1 per request and
+    two padding queries (seg -1), one at pos -1 so that it meets the
+    padding cells causally.  Tree cases tag the new slots with node ids in
+    [-2, 31] and give every query a random 32-bit ancestor mask.  ``kv``:
+    "bf16" or "f32" (K/V and queries)."""
+    frags = []
+    for i, L in enumerate(lens):
+        cuts = sorted(torch.randperm(max(L - 1, 1), generator=gen)[:3]
+                      .add(1).tolist()) if L > 1 else []
+        for lo, hi in zip([0, *cuts], [*cuts, L]):
+            frags.append([(i, p, -1) for p in range(lo, hi)])
+    frags += [[(-1, -1, -1)] for _ in range(pad_cells)]
+    frags = [frags[j] for j in torch.randperm(len(frags),
+                                              generator=gen).tolist()]
+    cells = [c for f in frags for c in f]
+    tags = torch.randint(-2, 32, (len(lens) * (W + 1),), generator=gen)
+    cells += [(i, L + d, int(tags[i * (W + 1) + d]))
+              for i, L in enumerate(lens) for d in range(W + 1)]
+    kv_seg, kv_pos, kv_node = (list(c) for c in zip(*cells))
+    q_seg = [i for i in range(len(lens)) for _ in range(W + 1)] + [-1, -1]
+    q_pos = [L + d for L in lens for d in range(W + 1)] + [-1, 3]
+    Tq, Tkv = len(q_seg), len(kv_seg)
+    i32 = lambda t: torch.as_tensor(t, dtype=torch.int32)  # noqa: E731
+    out = dict(q=_floats(gen, (Tq, H, D), kv),
+               k=_floats(gen, (Tkv, Kh, D), kv),
+               v=_floats(gen, (Tkv, Kh, D), kv),
+               q_seg=i32(q_seg), q_pos=i32(q_pos),
+               kv_seg=i32(kv_seg), kv_pos=i32(kv_pos),
+               q_anc=(i32(torch.randint(-2**31, 2**31 - 1, (Tq,),
+                                        generator=gen)) if tree else None),
+               kv_node=i32(kv_node) if tree else None)
+    return {n: None if t is None else t.to(device).contiguous()
+            for n, t in out.items()}
+
+
+def dense_decode_inputs(gen, lens, S, H, Kh, D, kv, device="cuda"):
+    """``decode_attention`` over a (B, S, Kh, D) cache: one query per row,
+    lengths ``lens`` (0 = a row with no live slot)."""
+    B = len(lens)
+    out = dict(q=_floats(gen, (B, H, D), kv),
+               k=_floats(gen, (B, S, Kh, D), kv),
+               v=_floats(gen, (B, S, Kh, D), kv),
+               lengths=torch.as_tensor(lens, dtype=torch.int32))
+    return {n: t.to(device).contiguous() for n, t in out.items()}
+
+
+def paged_decode_inputs(gen, lens, H, Kh, D, bs, kv, device="cuda"):
+    """``paged_decode_attention``: prefix-allocated tables over a shuffled
+    pool with an unallocated tail (-1) on every row; length 0 = a row with
+    no block."""
+    B = len(lens)
+    need = [math.ceil(L / bs) for L in lens]
+    NB = max(need) + 2
+    N = sum(need) + 3
+    perm = torch.randperm(N, generator=gen).tolist()
+    bt = torch.full((B, NB), -1, dtype=torch.int32)
+    for r, n in enumerate(need):
+        for k in range(n):
+            bt[r, k] = perm.pop()
+    x = torch.randn((2, N, bs, Kh, D), generator=gen)
+    k, ks = _quantized(x[0], kv)
+    v, vs = _quantized(x[1], kv)
+    out = dict(q=_floats(gen, (B, H, D), kv), k_pool=k, v_pool=v,
+               block_tables=bt,
+               lengths=torch.as_tensor(lens, dtype=torch.int32),
+               k_scale=ks, v_scale=vs)
     return {n: None if t is None else t.to(device).contiguous()
             for n, t in out.items()}

@@ -1,6 +1,7 @@
-// Shared pieces of the paged attention kernels (fused_verify.cu,
-// fused_decode.cu): element conversions, warp reductions, the shared-memory
-// layout and the per-tile online-softmax step.
+// Shared pieces of the attention kernels (fused_verify.cu, fused_decode.cu,
+// verify_attention.cu, decode_attention.cu, paged_attention.cu): element
+// conversions, warp reductions, the shared-memory layout, the dequantizing
+// K/V tile loader and the per-tile online-softmax step.
 //
 // Work split.  A CTA owns R <= 16 query rows of one kv head (the GQA
 // group's heads of a few query tokens; the wrapper picks the tile so the
@@ -66,6 +67,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ int warp_min_int(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_max_int(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // Dynamic shared memory of one CTA.
 struct Smem {
   float* q;   // [R][D]       queries, float32, pre-scaled by 1/sqrt(D)
@@ -94,7 +109,9 @@ __device__ __forceinline__ Smem carve_smem(float* base, int rows, int D) {
 }
 
 // Cooperative load of slots [s0, s0 + n) of physical block `blk`, kv head
-// `h`, into shared memory (K/V only; the caller fills seg/pos/node).  Each
+// `h`, into shared memory (K/V only; the caller fills seg/pos/node).  A
+// flat (slots, Kh, D) buffer is the case blk = 0; a dense (B, S, Kh, D)
+// cache row b is blk = b, bs = S.  Each
 // thread issues kUnroll K and V loads before it stores any of them, so a
 // tile costs about one memory latency instead of one per element.
 constexpr int kUnroll = 8;

@@ -1,0 +1,108 @@
+"""The unfused paged attention kernels over a ``(N, bs, Kh, D)`` block pool
+(bf16/f32, or int8/fp8 with ``(N, bs, Kh)`` float32 scales):
+
+* ``paged_decode_attention``: one query token per row walks the row's block
+  table; slots valid iff their logical position is below ``lengths[b]``;
+* ``paged_verify_attention``: packed verification (Eq. 13) over a list of
+  live blocks, the function of ``fused_verify.fused_paged_verify`` computed
+  split-KV: one partial per (query tile, kv head, block entry), then a
+  merge (two launches, one call).
+
+Both are public through ``kernels/ops.py``; the serving engine takes the
+fused kernels instead.  On a CPU tensor each wrapper runs its plain version;
+on a CUDA tensor it launches ``csrc/paged_attention.cu`` or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+DECODE = "paged_decode_attention"
+VERIFY = "paged_verify_attention"
+
+# The plain versions: gather the blocks dense, then masked attention.
+paged_decode_attention_plain = ref.paged_decode_attention_ref
+paged_verify_attention_plain = ref.paged_verify_ref
+
+
+def _c_fn(name, n_ptr, n_int):
+    fn = getattr(build.load("paged_attention"), "spin_" + name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * n_ptr + [i] * n_int + [ctypes.c_float, p]
+    fn.restype = i
+    return fn
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
+                           k_scale=None, v_scale=None):
+    """q: (B, H, D); pools: (N, bs, Kh, D); block_tables: (B, NB) int32
+    physical block per logical block (< 0 = unallocated); lengths: (B,)
+    int32 live prefix per row (at most the allocated blocks' slots).
+    Returns (B, H, D) in q's dtype; a row of length 0 gives zeros."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
+                                            lengths, k_scale, v_scale)
+    B, H, D = q.shape
+    N, bs, Kh, _ = k_pool.shape
+    NB = block_tables.shape[1]
+    q_code, kv_code = build.check_pools(q, k_pool, v_pool, None, None,
+                                        k_scale, v_scale)
+    build.check_int("block_tables", block_tables, (B, NB), q.device)
+    build.check_int("lengths", lengths, (B,), q.device)
+    out = torch.empty_like(q)
+    ptr = build.ptr
+    rc = _c_fn(DECODE, 8, 8)(
+        ptr(q), ptr(k_pool), ptr(v_pool), ptr(block_tables), ptr(lengths),
+        ptr(k_scale), ptr(v_scale), ptr(out), B, H, Kh, D, bs, NB, q_code,
+        kv_code, 1.0 / math.sqrt(D), build.stream_of(q))
+    build.raise_on(rc, DECODE)
+    build.LAUNCHES[DECODE] += 1
+    return out
+
+
+def paged_verify_attention(q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
+                           q_pos, block_ids, block_owner, q_anc=None,
+                           block_node=None, k_scale=None, v_scale=None):
+    """Packed verification over live pool blocks; arguments and result as
+    ``fused_verify.fused_paged_verify``.  On the card: a partial kernel
+    over (query tile, kv head, block entry) into float32 scratch, then a
+    merge kernel; one count in :data:`build.LAUNCHES` per call."""
+    if q.device.type == "cpu":
+        return paged_verify_attention_plain(
+            q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos, block_ids,
+            block_owner, q_anc, block_node, k_scale, v_scale)
+    if (q_anc is None) != (block_node is None):
+        raise ValueError("q_anc and block_node come together")
+    Tq, H, D = q.shape
+    bs, Kh = k_pool.shape[1], k_pool.shape[2]
+    M = block_ids.shape[0]
+    q_code, kv_code = build.check_pools(q, k_pool, v_pool, pool_seg,
+                                        pool_pos, k_scale, v_scale)
+    for name, t, shape in (("q_seg", q_seg, (Tq,)), ("q_pos", q_pos, (Tq,)),
+                           ("q_anc", q_anc, (Tq,)),
+                           ("block_ids", block_ids, (M,)),
+                           ("block_owner", block_owner, (M,)),
+                           ("block_node", block_node, (M, bs))):
+        build.check_int(name, t, shape, q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    pm = torch.empty((M, Tq, H), **f32)
+    pl = torch.empty((M, Tq, H), **f32)
+    pacc = torch.empty((M, Tq, H, D), **f32)
+    out = torch.empty_like(q)
+    G = H // Kh
+    ptr = build.ptr
+    rc = _c_fn(VERIFY, 17, 9)(
+        ptr(q), ptr(k_pool), ptr(v_pool), ptr(pool_seg), ptr(pool_pos),
+        ptr(q_seg), ptr(q_pos), ptr(q_anc), ptr(block_ids), ptr(block_owner),
+        ptr(block_node), ptr(k_scale), ptr(v_scale), ptr(pm), ptr(pl),
+        ptr(pacc), ptr(out), Tq, H, Kh, D, bs, M,
+        build.query_tile(Tq, G, Kh * max(M, 1), q.device), q_code, kv_code,
+        1.0 / math.sqrt(D), build.stream_of(q))
+    build.raise_on(rc, VERIFY)
+    build.LAUNCHES[VERIFY] += 1
+    return out

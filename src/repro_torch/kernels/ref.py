@@ -1,6 +1,9 @@
-"""Plain-PyTorch oracles for the paged attention kernels: direct
-gather-then-attend formulations of the functions the CUDA kernels compute,
-used by the tests and by ``chip_smoke.py`` as ground truth."""
+"""Plain-PyTorch versions of the attention kernels: direct (gather-then-)
+attend formulations of the functions the CUDA kernels compute.  The
+wrappers run them for CPU tensors; the tests and ``chip_smoke.py`` hold the
+kernels against them on the card.  Every one keeps the Pallas kernels'
+conventions: masked scores -1e30, ``m_safe = max(m, -1e29)``, zeros for a
+query with no valid key."""
 
 from __future__ import annotations
 
@@ -106,3 +109,36 @@ def paged_seq_decode_ref(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
     o = torch.einsum("btkgs,bskd->btkgd", p / denom, v)
     o = torch.where(mask.any(-1)[:, :, None, None, None], o, 0.0)
     return o.reshape(B, T, H, Dh).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, lengths):
+    """Dense GQA decode: one query per row against the row's cache, slots
+    at or past ``lengths[b]`` masked; a row of length 0 gives zeros (the
+    kernel's ``l = 0`` case).  q: (B, H, D); k, v: (B, S, Kh, D); lengths:
+    (B,) int32."""
+    B, H, Dh = q.shape
+    S, Kh = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Kh, H // Kh, Dh)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k.float()) / math.sqrt(Dh)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lengths.to(q.device)[:, None])                      # (B, S)
+    s = torch.where(mask[:, None, None, :], s, NEG)
+    m = torch.clamp(torch.amax(s, dim=-1, keepdim=True), min=-1e29)
+    p = torch.where(mask[:, None, None, :], torch.exp(s - m), 0.0)
+    p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    o = torch.where(mask.any(-1)[:, None, None, None], o, 0.0)
+    return o.reshape(B, H, Dh).to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths,
+                               k_scale=None, v_scale=None):
+    """Gather each row's blocks (entries < 0 read block 0, as the
+    reference's index map does) into a dense view, dequantize, then
+    :func:`decode_attention_ref`.  q: (B, H, D); pools: (N, bs, Kh, D);
+    block_tables: (B, NB); lengths: (B,)."""
+    B = q.shape[0]
+    g = torch.clamp(block_tables.long(), min=0)
+    k = _maybe_dequant(k_pool, k_scale, g).reshape(B, -1, *k_pool.shape[2:])
+    v = _maybe_dequant(v_pool, v_scale, g).reshape(B, -1, *v_pool.shape[2:])
+    return decode_attention_ref(q, k, v, lengths)

@@ -3,16 +3,20 @@
     python -m repro_torch.launch.serve --dataset mix --requests 16 \
         --selector lbss --gamma 4 --fused-kernels on [--device cuda] \
         [--no-packed] [--no-pipeline] [--arrival-rate 200] \
-        [--kv-budget 512] [--scheduler continuous] [--block-size 16]
+        [--kv-budget 512] [--scheduler continuous] [--block-size 16] \
+        [--kv-layout paged|dense]
 
 Builds the heterogeneous SSM zoo + LLM (reduced LLaMA configs, random
 weights from ``--seed``) on ``--device`` (default ``cuda``; ``cpu`` runs
 the plain PyTorch versions of the kernels), then drives one engine replica
 until the request stream drains and prints its stats as JSON.  The flags
-and defaults are the reference launcher's; the multi-replica router flags
-(``--replicas > 1``, ``--router-policy``, ``--autoscale``, ``--steal``,
-``--replica-classes``) and ``--kv-layout dense`` raise until the router
-and the dense layout are ported (ROADMAP Queue 1).
+and defaults are the reference launcher's.  ``--kv-layout dense`` serves
+from (capacity, max_len) grids, its packed verify through the
+``verify_attention`` kernel; ``--spec-shape tree``, ``--kv-dtype
+int8/fp8`` and ``--fused-kernels on`` fall back with a warning there, as
+in the reference.  The multi-replica router flags (``--replicas > 1``,
+``--router-policy``, ``--autoscale``, ``--steal``, ``--replica-classes``)
+raise until the router is ported (ROADMAP Queue 1).
 """
 
 from __future__ import annotations

@@ -100,15 +100,24 @@ def resolve_device(device) -> torch.device:
 
 # ------------------------------------------------------------------ cache --
 
+def cache_len(cfg: C.ModelConfig, max_len: int) -> int:
+    """Slots of a dense cache row: a sliding-window model keeps a ring
+    buffer of the window tail."""
+    if cfg.sliding_window:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
 def init_cache(cfg, batch, max_len, device="cuda"):
     L, Kh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    S = cache_len(cfg, max_len)
     dt = cfg.compute_dtype
     return {
-        "k": torch.zeros((L, batch, max_len, Kh, hd), dtype=dt, device=device),
-        "v": torch.zeros((L, batch, max_len, Kh, hd), dtype=dt, device=device),
-        "pos": torch.full((L, batch, max_len), -1, dtype=torch.int32,
+        "k": torch.zeros((L, batch, S, Kh, hd), dtype=dt, device=device),
+        "v": torch.zeros((L, batch, S, Kh, hd), dtype=dt, device=device),
+        "pos": torch.full((L, batch, S), -1, dtype=torch.int32,
                           device=device),
-        "seg": torch.full((L, batch, max_len), -1, dtype=torch.int32,
+        "seg": torch.full((L, batch, S), -1, dtype=torch.int32,
                           device=device),
     }
 
@@ -123,7 +132,8 @@ def init_paged_cache(cfg, num_blocks, block_size, kv_dtype: str = "bf16",
     check_supported(cfg)
     if cfg.sliding_window:
         raise ValueError("paged KV does not support sliding-window ring "
-                         "buffers (ROADMAP Queue 1, dense layout)")
+                         "buffers (the window tail lives in the dense "
+                         "layout)")
     cache = init_cache(cfg, num_blocks, block_size, device)
     qdt = quant.storage_dtype(kv_dtype)
     if qdt is None:
@@ -262,7 +272,14 @@ def prefill(params, cfg, *, tokens, lengths=None, max_len=None,
             torch.int32)
     max_len = max_len or S
     cache = init_cache(cfg, B, max_len, dev)
-    widx = write_index(torch.clamp(positions, max=max_len - 1), max_len)
+    Sc = cache_len(cfg, max_len)
+    if cfg.sliding_window and Sc < S:
+        # ring buffer: only the last Sc positions land in the cache; the
+        # earlier ones point out of range and are dropped
+        slots = torch.where(positions >= S - Sc, positions % Sc, Sc)
+    else:
+        slots = torch.clamp(positions, max=Sc - 1)
+    widx = write_index(slots, Sc)
     x = _run_stack(params, x, cfg, opts, positions=positions,
                    segments=segments, cache=cache, widx=widx,
                    attend_cache=False)
@@ -283,7 +300,9 @@ def decode_step(params, cfg, cache, *, tokens, lengths, segments=None,
         segments = torch.zeros((B, T), dtype=torch.int32, device=x.device)
     widx = None
     if attn_override is None:
-        widx = write_index(positions, cache["k"].shape[2])
+        Sc = cache["k"].shape[2]
+        widx = write_index(positions % Sc if cfg.sliding_window else positions,
+                           Sc)
     x = _run_stack(params, x, cfg, opts, positions=positions,
                    segments=segments, cache=cache, widx=widx,
                    attn_override=attn_override)

@@ -1,21 +1,23 @@
 """SPIN's runtime engine (paper §III Fig. 7 + §V) with continuous batching,
-on the paged KV layout.
+on the paged or the dense KV layout.
 
 Per time slot:
   0. the continuous-batching scheduler (serving/scheduler.py) admits
      arrived requests into free pool rows and preempts lowest-priority
      requests when the KV budget is exceeded.  With ``prefill_chunk=0``
      admission prefills the whole prompt; with ``prefill_chunk>0`` the
-     scheduler grants prompt *chunks*, appended into the row's block table
-     while other rows keep decoding;
+     scheduler grants prompt *chunks*, appended into the row's blocks
+     (paged) or cache row (dense) while other rows keep decoding;
   1. the selector (LBSS) assigns each active request to an SSM; switches go
      through the SwitchManager (pre-computed switching);
   2. the gamma controller (core/gamma.py) grants every request a
      speculation depth k_i in [1, gamma_max];
-  3. every SSM drafts its rows' granted depths through paged decode steps;
+  3. every SSM drafts its rows' granted depths through decode steps;
   4. the LLM verifies all candidates — packed via request decomposition
-     (§V-A, one pass under the Eq. 13 segment mask over the live blocks) or
-     padded (``use_packed_verify=False``) — accepting at most k_i per row;
+     (§V-A, one pass under the Eq. 13 segment mask over the live blocks,
+     or over the dense rows gathered by ``decompose.plan_decomposition``)
+     or padded (``use_packed_verify=False``) — accepting at most k_i per
+     row;
   5. accepted tokens are committed, rejected slots rolled back, the SSMs
      catch up, and goodput/acceptance are observed back into the selector;
      rows of finished requests are recycled in the same step.
@@ -27,9 +29,15 @@ every paged attention site through the fused kernels (kernels/ops.py): on
 the card, the CUDA kernels ``fused_paged_verify`` (LLM verify) and
 ``fused_paged_decode`` (drafting, catch-up, chunk appends, padded verify).
 
-Layouts the port does not serve yet raise ``ValueError``: the dense KV
-layout and models with recurrent state or sliding windows (ROADMAP Queue
-1, dense layout).
+The dense layout (``kv_layout="dense"``, and automatically for
+sliding-window models) keeps a (capacity, max_len) grid per model; its
+packed verify runs ``kernels.ops.verify_attention`` once per LLM layer
+(on the card, the CUDA kernel ``csrc/verify_attention.cu``), its drafts
+and catch-up decodes plain PyTorch over the grid, as the reference's XLA
+path does.  Tree speculation, quantized KV and the fused kernels need the
+paged layout; under the dense one each falls back with a warning, as in
+the reference.  Models with recurrent state raise ``ValueError`` (ROADMAP
+Queue 1, models off the main path).
 """
 
 from __future__ import annotations
@@ -50,12 +58,11 @@ from repro_torch.core.gamma import GammaConfig, GammaController
 from repro_torch.core.switching import SwitchManager
 from repro_torch.data.workloads import Request
 from repro_torch.kernels import autotune, quant
+from repro_torch.models import transformer as T
 from repro_torch.serving.paged import paged_compatible
-from repro_torch.serving.pool import PagedCachePool
+from repro_torch.serving.pool import DenseCachePool, PagedCachePool
 from repro_torch.serving.scheduler import ContinuousScheduler, SchedulerConfig
 from repro_torch.serving.stats import slo_summary
-
-_NOT_YET = "waits in ROADMAP Queue 1 (dense layout)"
 
 
 def _bucket(n: int, align: int = 16) -> int:
@@ -64,6 +71,10 @@ def _bucket(n: int, align: int = 16) -> int:
 
 def _i32(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+
+def _i64(x) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.int64))
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -79,7 +90,7 @@ class EngineConfig:
     use_packed_verify: bool = True
     use_pipeline: bool = True
     micro_batches: Optional[List[int]] = None   # None -> paper heuristic
-    packed_bucket: int = 256           # dense packed-KV bucketing (unused)
+    packed_bucket: int = 256           # dense packed-KV bucketing
     straggler_factor: float = 4.0
     straggler_mitigation: bool = True
     seed: int = 0
@@ -87,7 +98,10 @@ class EngineConfig:
     # total KV cells before preemption (rounded down to whole blocks and
     # enforced as the physical block pool); None -> capacity * max_len
     kv_budget: Optional[int] = None
-    kv_layout: str = "paged"           # "dense": ROADMAP Queue 1
+    # "paged": block-table pools, budget enforced as physical blocks;
+    # "dense": (capacity, max_len) grids.  Sliding-window models fall
+    # back to dense automatically
+    kv_layout: str = "paged"
     block_size: int = 16
     prefill_chunk: int = 0             # 0 = monolithic prefill-on-admit
     token_budget: Optional[int] = None
@@ -165,15 +179,13 @@ class SpinEngine:
         self.ssms = list(ssms)
         self.selector = selector
         self.ecfg = ecfg
-        if ecfg.kv_layout != "paged":
-            raise ValueError(
-                f"kv_layout {ecfg.kv_layout!r}: the port serves the paged "
-                f"layout; the dense layout {_NOT_YET}")
+        if ecfg.kv_layout not in ("paged", "dense"):
+            raise ValueError(f"unknown kv_layout {ecfg.kv_layout!r}")
         for b in [llm] + self.ssms:
-            if not paged_compatible(b.cfg) or b.has_recurrent_state:
+            if b.has_recurrent_state:
                 raise ValueError(
-                    f"{b.cfg.name}: models with recurrent state or sliding "
-                    f"windows need the dense layout, which {_NOT_YET}")
+                    f"{b.cfg.name}: models with recurrent state wait in "
+                    f"ROADMAP Queue 1 (models off the main path)")
         if ecfg.spec_shape not in ("linear", "tree"):
             raise ValueError(f"unknown spec_shape {ecfg.spec_shape!r}")
         if ecfg.spec_branch < 1:
@@ -190,9 +202,13 @@ class SpinEngine:
         else:
             self.gamma_max = (ecfg.gamma_max if ecfg.gamma_max is not None
                               else 2 * ecfg.gamma)
-        # tree speculation rides the packed-verify path; padded verify
-        # falls back to linear, as in the reference
-        self.tree = ecfg.spec_shape == "tree" and ecfg.use_packed_verify
+        self.paged = (ecfg.kv_layout == "paged"
+                      and paged_compatible(llm.cfg)
+                      and all(paged_compatible(b.cfg) for b in self.ssms))
+        # tree speculation rides the paged packed-verify path; anything
+        # else falls back to linear, as in the reference
+        self.tree = (ecfg.spec_shape == "tree" and self.paged
+                     and ecfg.use_packed_verify)
         if ecfg.spec_shape == "tree" and not self.tree:
             warnings.warn(
                 "spec_shape='tree' requires the paged KV layout and packed "
@@ -210,10 +226,22 @@ class SpinEngine:
                 f"gamma_max) = "
                 f"{self.gamma_max + min(ecfg.spec_branch, self.gamma_max)}"
                 f"); lower --gamma-max or --spec-branch")
-        # fused kernels: resolve each site's config ONCE here (None = the
-        # gather path)
-        self.fused = ecfg.fused_kernels == "on"
-        self.kv_dtype = ecfg.kv_dtype
+        # fused kernels stream KV straight out of the paged pool: resolve
+        # each site's config ONCE here (None = the gather path)
+        self.fused = ecfg.fused_kernels == "on" and self.paged
+        if ecfg.fused_kernels == "on" and not self.paged:
+            warnings.warn(
+                "fused_kernels='on' requires the paged KV layout; "
+                "falling back to the unfused attention path",
+                stacklevel=2)
+        # quantized blocks live in the paged pool's block/scale layout; a
+        # dense fallback reverts to the compute dtype
+        self.kv_dtype = ecfg.kv_dtype if self.paged else "bf16"
+        if quant.is_quantized(ecfg.kv_dtype) and not self.paged:
+            warnings.warn(
+                f"kv_dtype={ecfg.kv_dtype!r} requires the paged KV "
+                "layout; falling back to bf16 (unquantized) KV",
+                stacklevel=2)
         shape = "tree" if self.tree else "linear"
 
         def _fused_cfg(kind, b, s="linear"):
@@ -229,26 +257,38 @@ class SpinEngine:
         self.fused_ssm_decode = [_fused_cfg("decode", b) for b in self.ssms]
         # each extra branch needs a pool row to draft/verify through
         row_mult = self.branches
-        bs = ecfg.block_size
-        bpr = math.ceil(ecfg.max_len / bs)
-        self.max_len = bpr * bs                      # block-aligned
-        budget = (ecfg.kv_budget if ecfg.kv_budget is not None
-                  else ecfg.capacity * self.max_len)
-        # the scheduler enforces the block-rounded budget; the pool holds
-        # max(budget, one full row) physical blocks (deadlock freedom)
-        budget_blocks = max(1, budget // bs)
-        self.llm_pool = PagedCachePool(
-            llm.cfg, ecfg.capacity * row_mult, self.max_len, bs,
-            num_blocks=max(budget_blocks, bpr), kv_dtype=self.kv_dtype,
-            device=llm.device)
-        # draft pools are capacity-sized (fast switching keeps every row
-        # draftable); the budget-constrained pool is the LLM's
-        self.ssm_pools = [
-            PagedCachePool(b.cfg, selector.cfg.batch_limits[j] * row_mult,
-                           self.max_len, bs, kv_dtype=self.kv_dtype,
-                           device=b.device)
-            for j, b in enumerate(self.ssms)]
-        sched_budget = budget_blocks * bs
+        if self.paged:
+            bs = ecfg.block_size
+            bpr = math.ceil(ecfg.max_len / bs)
+            self.max_len = bpr * bs                  # block-aligned
+            budget = (ecfg.kv_budget if ecfg.kv_budget is not None
+                      else ecfg.capacity * self.max_len)
+            # the scheduler enforces the block-rounded budget; the pool
+            # holds max(budget, one full row) physical blocks (deadlock
+            # freedom)
+            budget_blocks = max(1, budget // bs)
+            self.llm_pool = PagedCachePool(
+                llm.cfg, ecfg.capacity * row_mult, self.max_len, bs,
+                num_blocks=max(budget_blocks, bpr), kv_dtype=self.kv_dtype,
+                device=llm.device)
+            # draft pools are capacity-sized (fast switching keeps every
+            # row draftable); the budget-constrained pool is the LLM's
+            self.ssm_pools = [
+                PagedCachePool(b.cfg,
+                               selector.cfg.batch_limits[j] * row_mult,
+                               self.max_len, bs, kv_dtype=self.kv_dtype,
+                               device=b.device)
+                for j, b in enumerate(self.ssms)]
+            sched_budget = budget_blocks * bs
+        else:
+            self.max_len = ecfg.max_len
+            self.llm_pool = DenseCachePool(llm.cfg, ecfg.capacity,
+                                           ecfg.max_len, device=llm.device)
+            self.ssm_pools = [
+                DenseCachePool(b.cfg, selector.cfg.batch_limits[j],
+                               ecfg.max_len, device=b.device)
+                for j, b in enumerate(self.ssms)]
+            sched_budget = ecfg.kv_budget
         self.switcher = SwitchManager(self.ssms)
         self.cost = cost_model or P.CostModel(
             ssm_time_per_token=[1e-4 * (j + 1) for j in range(len(ssms))],
@@ -275,7 +315,7 @@ class SpinEngine:
             capacity=ecfg.capacity, max_len=self.max_len,
             gamma=self.gamma_max,
             kv_budget=sched_budget, policy=ecfg.scheduler_policy,
-            block_size=ecfg.block_size,
+            block_size=ecfg.block_size if self.paged else 0,
             prefill_chunk=ecfg.prefill_chunk if self.chunked else 0,
             token_budget=ecfg.token_budget,
             spec_branches=self.branches,
@@ -349,7 +389,9 @@ class SpinEngine:
         row = np.zeros((1, _bucket(L)), np.int32)
         row[0, :L] = tokens
         dev = self.llm.device
-        plen = self.llm_pool.prefill_len(row.shape[1])
+        # paged: a cache of just the prompt's blocks; dense: a full row
+        plen = (self.llm_pool.prefill_len(row.shape[1]) if self.paged
+                else self.max_len)
         logits, cache = self.llm.prefill(_i32(row, dev), _i32([L], dev), plen)
         last = self._first_token(r, logits, L - 1)
         self.llm_pool.insert(r.rid, cache, L, last)
@@ -388,12 +430,18 @@ class SpinEngine:
         segs = np.full((1, Tb), -1, np.int32)
         segs[0, :n] = 0
         dev = self.llm.device
-        self.llm_pool.ensure(rid, pos + n)
-        bt = self.llm_pool.row_table(rid)
-        logits, cache = self.llm.append_paged(
-            self.llm_pool.cache, _i32(toks, dev), _i32([pos], dev),
-            _i32(segs, dev), bt, self.fused_llm_decode)
-        self.llm_pool.cache = cache
+        if self.paged:
+            self.llm_pool.ensure(rid, pos + n)
+            bt = self.llm_pool.row_table(rid)
+            logits, cache = self.llm.append_paged(
+                self.llm_pool.cache, _i32(toks, dev), _i32([pos], dev),
+                _i32(segs, dev), bt, self.fused_llm_decode)
+            self.llm_pool.cache = cache
+        else:
+            # the row view is written in place by the append
+            logits, _ = self.llm.append(
+                self.llm_pool.row_cache(rid), _i32(toks, dev),
+                _i32([pos], dev), _i32(segs, dev))
         r.prefill_pos = pos + n
         row = self.llm_pool.row_of[rid]
         self.llm_pool.lengths[row] = r.prefill_pos
@@ -529,11 +577,12 @@ class SpinEngine:
         self.scheduler.set_decode_depths(
             {rid: k + self._beff(k) - 1 for rid, k in depths.items()}
             if self.tree else depths)
-        # append-a-block growth: cover context + this slot's granted
-        # speculation window (k_i + 1) before decode/verify writes land
-        self.llm_pool.ensure_rows({
-            r.rid: int(self.llm_pool.lengths[self.llm_pool.row_of[r.rid]])
-            + depths[r.rid] + 1 for r in active})
+        if self.paged:
+            # append-a-block growth: cover context + this slot's granted
+            # speculation window (k_i + 1) before decode/verify writes land
+            self.llm_pool.ensure_rows({
+                r.rid: int(self.llm_pool.lengths[self.llm_pool.row_of[r.rid]])
+                + depths[r.rid] + 1 for r in active})
 
         # draft on every SSM pool (static shapes at the pool's slot-max
         # depth; rows granted less contribute only their k_i-token prefix)
@@ -625,8 +674,11 @@ class SpinEngine:
 
     # ---------------------------------------------------------- internals --
     def _switch_width(self, j: int, length: int) -> int:
-        """Cache width for switch prefills on SSM j: the context's blocks
-        plus a gamma_max+1 growth margin."""
+        """Cache width for switch prefills on SSM j: dense pools take full
+        rows; paged ones the context's blocks plus a gamma_max+1 growth
+        margin."""
+        if not self.paged:
+            return self.max_len
         need = min(self.max_len, length + self.gamma_max + 1)
         return self.ssm_pools[j].prefill_len(_bucket(need))
 
@@ -668,10 +720,18 @@ class SpinEngine:
 
     def _draft_pool(self, j: int, width: int, depths) -> np.ndarray:
         """Draft ``width`` tokens for every row of SSM j's pool; returns
-        (capacity, width) candidates.  Idle rows own no blocks, so their
-        writes are dropped at the source."""
+        (capacity, width) candidates.  Idle rows are drafted too (static
+        shape): dense idle rows are re-invalidated afterwards, paged ones
+        own no blocks, so their writes are dropped at the source."""
         b = self.ssms[j]
         pool = self.ssm_pools[j]
+        if not self.paged:
+            cand, _, pool.cache = sd.draft(
+                b, pool.cache, _i32(pool.last_token, b.device)[:, None],
+                _i32(pool.lengths, b.device), width, self.gen)
+            pool.invalidate_rows([row for row in range(pool.capacity)
+                                  if row not in pool.row_of.values()])
+            return cand.cpu().numpy()
         # cover draft writes (ctx..ctx+k_i-1) and the catch-up hole fill
         # (ctx+1..ctx+k_i+1) before any decode lands
         pool.ensure_rows({
@@ -839,11 +899,14 @@ class SpinEngine:
         if self.ecfg.use_packed_verify:
             logits = self._verify_packed(inp, lens_np, W,
                                          tree_rows=tree_rows)
-        else:
+        elif self.paged:
             bt, _ = pool.block_table_array()
             logits, pool.cache = self.llm.decode_paged(
                 pool.cache, _i32(inp, dev), _i32(lens_np, dev), bt,
                 self.fused_llm_decode)
+        else:
+            logits, pool.cache = self.llm.decode(
+                pool.cache, _i32(inp, dev), _i32(lens_np, dev))
         V = self.llm.cfg.vocab_size
         greedy = torch.argmax(logits[..., :V].float(), dim=-1)
         greedy = greedy.cpu().numpy().astype(np.int64)       # (N, W+1)
@@ -876,7 +939,14 @@ class SpinEngine:
                 winner_row[rid] = best_row
 
         # rollback: keep the accepted prefix only (trim the tail in place)
-        pool.invalidate_span(lens_np + 1 + n_acc_all, lens_np + W + 1, W=W)
+        if self.paged:
+            pool.invalidate_span(lens_np + 1 + n_acc_all, lens_np + W + 1,
+                                 W=W)
+        else:
+            sd.invalidate_slots(pool.cache, _i64(lens_np + 1 + n_acc_all),
+                                _i64(lens_np + W + 1))
+            pool.invalidate_rows([row for row in range(N)
+                                  if row not in pool.row_of.values()])
         # prefilling rows take no part in this verify, but the full-pool
         # forward wrote speculative KV at [len, len+W+1): scrub all of it
         pre_rows = [pool.row_of[rid] for rid in self.scheduler.prefilling
@@ -888,7 +958,10 @@ class SpinEngine:
             for row in pre_rows:
                 lo[row] = lens_now[row]
                 hi[row] = lens_now[row] + W + 1
-            pool.invalidate_span(lo, hi, W=W + 1)
+            if self.paged:
+                pool.invalidate_span(lo, hi, W=W + 1)
+            else:
+                sd.invalidate_slots(pool.cache, _i64(lo), _i64(hi))
 
         # per-SSM catch-up (fill the c_k hole) + rollback on draft pools
         for j, spool in enumerate(self.ssm_pools):
@@ -903,12 +976,18 @@ class SpinEngine:
                     continue
                 outs_j[row] = out_all[lrow]
                 nacc_j[row] = int(n_acc_all[lrow])
-            bt, _ = spool.block_table_array()
             sdev = self.ssms[j].device
-            _, spool.cache = self.ssms[j].decode_paged(
-                spool.cache, _i32(outs_j, sdev), _i32(pl + 1, sdev), bt,
-                self.fused_ssm_decode[j])
-            spool.invalidate_span(pl + 2 + nacc_j, pl + W + 3, W=W + 1)
+            if self.paged:
+                bt, _ = spool.block_table_array()
+                _, spool.cache = self.ssms[j].decode_paged(
+                    spool.cache, _i32(outs_j, sdev), _i32(pl + 1, sdev), bt,
+                    self.fused_ssm_decode[j])
+                spool.invalidate_span(pl + 2 + nacc_j, pl + W + 3, W=W + 1)
+            else:
+                _, spool.cache = self.ssms[j].decode(
+                    spool.cache, _i32(outs_j, sdev), _i32(pl + 1, sdev))
+                sd.invalidate_slots(spool.cache, _i64(pl + 2 + nacc_j),
+                                    _i64(pl + W + 3))
 
         # update lengths / last tokens on pools
         n_acc = np.zeros(len(ids), np.int64)
@@ -929,12 +1008,33 @@ class SpinEngine:
 
     def _verify_packed(self, inp, lens_np, W: int, tree_rows=None):
         """Packed verification via request decomposition (§V-A) at depth
-        W: the packed KV is the cohort's live blocks, read straight from
-        the pool.  ``tree_rows`` (tree mode) maps pool row -> (main row,
-        node offset, branch depth)."""
+        W.  Paged: the packed KV is the cohort's live blocks, read straight
+        from the pool.  ``tree_rows`` (tree mode) maps pool row -> (main
+        row, node offset, branch depth).  Dense: the rows are gathered
+        into a flat packed buffer by the decomposition plan, its size
+        bucketed to ``packed_bucket``."""
         pool = self.llm_pool
         N = pool.capacity
         dev = self.llm.device
+        if not self.paged:
+            lens = [int(n) for n in np.maximum(lens_np, 1)]
+            plan = D.plan_decomposition(
+                lens, align=min(128, _bucket(max(lens), 16)))
+            total_b = _bucket(plan.total, self.ecfg.packed_bucket)
+            gb = np.zeros(total_b, np.int32)
+            gs = np.zeros(total_b, np.int32)
+            valid = np.zeros(total_b, bool)
+            gb[:plan.total] = plan.gather_b
+            gs[:plan.total] = plan.gather_s
+            valid[:plan.total] = plan.valid
+            self.last_plan = plan
+            q_rows, q_pos, q_seg = D.build_query_layout(lens, W)
+            logits, pool.cache = T.verify_step_packed(
+                self.llm.params, self.llm.cfg, pool.cache,
+                tokens=_i32(inp.reshape(1, -1), dev),
+                positions=_i32(q_pos, dev), segments=_i32(q_seg, dev),
+                attn_override=D.make_attn_override(gb, gs, valid, q_rows))
+            return logits[0].reshape(N, W + 1, -1)
         bt, _ = pool.block_table_array()
         ids_np, owner_np = pool.live_blocks()
         toks = _i32(inp.reshape(1, -1), dev)
@@ -961,13 +1061,27 @@ class SpinEngine:
         block-granular (a request costs its allocated blocks)."""
         if not ids:
             return 0.0
-        raw = {rid: float(self.llm_pool.allocated_cells(rid)) for rid in ids}
-        if not self.ecfg.use_packed_verify:
-            # padded paged decode attends the bucketed widest table
-            return float(max(raw.values()))
+        if self.paged:
+            raw = {rid: float(self.llm_pool.allocated_cells(rid))
+                   for rid in ids}
+            if not self.ecfg.use_packed_verify:
+                # padded paged decode attends the bucketed widest table
+                return float(max(raw.values()))
+            scale = 1.0
+        else:
+            # dense: each request's context + window, normalised to the
+            # decomposition plan's packed cell count (padded verify: the
+            # uniform max-length grid)
+            gamma = max(depths[rid] for rid in ids)
+            if not (self.ecfg.use_packed_verify
+                    and hasattr(self, "last_plan")):
+                return float(np.max(self.llm_pool.lengths)) + gamma + 1
+            raw = {rid: float(self.llm_pool.lengths[
+                self.llm_pool.row_of[rid]]) + gamma + 1 for rid in ids}
+            scale = self.last_plan.total / max(1.0, sum(raw.values()))
         cells = []
         for j in range(len(self.ssms)):
-            vals = [raw[rid] for rid in ids if assign.get(rid) == j]
+            vals = [raw[rid] * scale for rid in ids if assign.get(rid) == j]
             cells.append(float(np.mean(vals)) if vals else 0.0)
         return cells
 
@@ -1028,8 +1142,8 @@ class SpinEngine:
             "slo": {**summ.asdict(),
                     "goodput_under_slo":
                         summ.goodput_under_slo(self.sim_time)},
-            "kv_layout": "paged",
-            "kv_blocks": self.llm_pool.num_blocks,
+            "kv_layout": "paged" if self.paged else "dense",
+            "kv_blocks": self.llm_pool.num_blocks if self.paged else None,
             "prefill_chunk": (self.ecfg.prefill_chunk if self.chunked
                               else 0),
             "spec_shape": "tree" if self.tree else "linear",

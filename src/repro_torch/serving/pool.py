@@ -1,26 +1,35 @@
-"""Per-model paged KV-cache pool.
+"""Per-model KV-cache pools.  Two layouts share one interface
+(``has/insert/evict/rows/lengths/...``):
 
-``PagedCachePool`` keeps KV in a physical *block pool* ``(L, num_blocks,
-block_size, Kh, D)`` with a free-block list; each request owns an ordered
-block table.  The scheduler's KV budget *is* ``num_blocks``.  Admission
-writes the prefilled KV into exactly the prompt's blocks (O(prompt
-blocks)); decode growth appends one block at a time; eviction returns
-blocks to the free list in O(1) with no cache traffic.  Rollback of
-rejected drafts trims the tail block in place.  Blocks carry copy-on-write
-refcounts: ``fork`` aliases a whole row, ``cow_prepare`` copies only the
-shared blocks a write is about to touch, and ``evict`` frees a block only
-when its last reference drops — the substrate for tree speculation.
-``kv_dtype`` in {bf16, int8, fp8} selects the block storage precision
-(``kernels/quant.py``): quantized pools keep per-(slot, head) float32 scale
-sidecars, written, copied and freed with the blocks they scale.
+``DenseCachePool``
+    A fixed ``capacity x max_len`` batched grid ``(L, capacity, S, ...)``
+    with request -> row slots; every row reserves ``max_len`` cells
+    whether used or not.  The layout of sliding-window models (their ring
+    buffers) and ``--kv-layout dense``.  Row writes and invalidations
+    update the grid in place; ``row_cache`` is a view of the row.
+
+``PagedCachePool``
+    Keeps KV in a physical *block pool* ``(L, num_blocks, block_size, Kh,
+    D)`` with a free-block list; each request owns an ordered block table.
+    The scheduler's KV budget *is* ``num_blocks``.  Admission writes the
+    prefilled KV into exactly the prompt's blocks (O(prompt blocks));
+    decode growth appends one block at a time; eviction returns blocks to
+    the free list in O(1) with no cache traffic.  Rollback of rejected
+    drafts trims the tail block in place.  Blocks carry copy-on-write
+    refcounts: ``fork`` aliases a whole row, ``cow_prepare`` copies only
+    the shared blocks a write is about to touch, and ``evict`` frees a
+    block only when its last reference drops — the substrate for tree
+    speculation.  ``kv_dtype`` in {bf16, int8, fp8} selects the block
+    storage precision (``kernels/quant.py``): quantized pools keep
+    per-(slot, head) float32 scale sidecars, written, copied and freed
+    with the blocks they scale.
 
 Block-accounting invariant: ``free_blocks + allocated_blocks ==
 num_blocks`` after every admit/evict/ensure/fork sequence.
 
 The bookkeeping (tables, refcounts, free lists) lives on the host in numpy,
-as in the reference; the block pool lives on the pool's device and every
-write to it is in place.  The reference's dense pool (``DenseCachePool``)
-waits in ROADMAP Queue 1 (dense layout).
+as in the reference; the pools live on the pool's device and every write
+to them is in place.
 """
 
 from __future__ import annotations
@@ -34,6 +43,89 @@ import torch
 from repro_torch.kernels import quant
 from repro_torch.models import transformer as T
 
+
+# ------------------------------------------------------------ dense layout --
+
+def _row_set(cache, row: int, one_cache):
+    """Write a batch-1 cache into grid row ``row``, in place."""
+    for name, t in cache.items():
+        t[:, row] = one_cache[name][:, 0]
+
+
+def _row_get(cache, row: int):
+    """Batch-1 view of grid row ``row``: writes through it land in the
+    grid, so a chunk append needs no write-back."""
+    return {name: t[:, row:row + 1] for name, t in cache.items()}
+
+
+def _rows_invalidate(cache, rows):
+    """Mark every attention slot of the given rows empty (seg = -1), in
+    place."""
+    if rows:
+        cache["seg"][:, list(rows)] = -1
+
+
+class DenseCachePool:
+    """Static (capacity, max_len) batched cache with request->row slots."""
+
+    def __init__(self, cfg, capacity: int, max_len: int, device="cuda"):
+        self.cfg = cfg
+        self.device = T.resolve_device(device)
+        self.capacity = capacity
+        self.max_len = max_len
+        self.cache = T.init_cache(cfg, capacity, max_len, self.device)
+        self.lengths = np.zeros(capacity, np.int64)
+        self.last_token = np.zeros(capacity, np.int64)
+        self.row_of: Dict[int, int] = {}
+        self._free = list(range(capacity))
+
+    def has(self, rid: int) -> bool:
+        return rid in self.row_of
+
+    @property
+    def free_rows(self) -> int:
+        return len(self._free)
+
+    def can_admit(self, length: int) -> bool:
+        return bool(self._free)
+
+    def insert(self, rid: int, one_cache, length: int, last_token: int):
+        row = self._free.pop()
+        _row_set(self.cache, row, one_cache)
+        self.row_of[rid] = row
+        self.lengths[row] = length
+        self.last_token[row] = last_token
+        return row
+
+    def insert_empty(self, rid: int) -> int:
+        """Grant a row with no KV yet (chunked prefill).  Its slots are
+        already seg-invalidated (fresh pool or ``evict``)."""
+        row = self._free.pop()
+        self.row_of[rid] = row
+        self.lengths[row] = 0
+        self.last_token[row] = 0
+        return row
+
+    def row_cache(self, rid: int):
+        """Batch-1 view of the request's row; a decode step on it writes
+        the row in place (the reference's ``write_row`` has no
+        counterpart here)."""
+        return _row_get(self.cache, self.row_of[rid])
+
+    def invalidate_rows(self, rows: List[int]):
+        _rows_invalidate(self.cache, rows)
+
+    def evict(self, rid: int):
+        row = self.row_of.pop(rid)
+        self.invalidate_rows([row])
+        self.lengths[row] = 0
+        self._free.append(row)
+
+    def rows(self, rids) -> np.ndarray:
+        return np.array([self.row_of[r] for r in rids], np.int32)
+
+
+# ------------------------------------------------------------ paged layout --
 
 def _pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()

@@ -7,11 +7,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import build, cases
+from repro_torch.kernels import build, cases, paged_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_plain)
 from repro_torch.kernels.fused_decode import (fused_paged_decode,
                                               fused_paged_decode_plain)
 from repro_torch.kernels.fused_verify import (fused_paged_verify,
                                               fused_paged_verify_plain)
+from repro_torch.kernels.verify_attention import (verify_attention,
+                                                  verify_attention_plain)
 
 
 @pytest.fixture
@@ -56,3 +60,62 @@ def test_wrapper_rejects_bad_inputs(gen):
         fused_paged_decode(**{**a, "k_scale": None, "v_scale": None})
     with pytest.raises(ValueError, match="int32"):
         fused_paged_decode(**{**a, "q_pos": a["q_pos"].long()})
+
+
+@pytest.mark.parametrize("kv,tree,H,Kh,D", [
+    ("bf16", False, 32, 32, 128), ("f32", True, 16, 8, 96),
+    ("bf16", True, 12, 12, 64), ("f32", False, 8, 1, 64)])
+def test_verify_attention_matches_plain(gen, kv, tree, H, Kh, D):
+    a = cases.dense_verify_inputs(gen, [37, 5, 90, 1], 4, H, Kh, D, kv,
+                                  tree)
+    _check(verify_attention, verify_attention_plain, "verify_attention", a)
+
+
+@pytest.mark.parametrize("kv,H,Kh,D", [
+    ("bf16", 32, 32, 128), ("f32", 16, 4, 96), ("bf16", 12, 12, 64)])
+def test_decode_attention_matches_plain(gen, kv, H, Kh, D):
+    a = cases.dense_decode_inputs(gen, [0, 37, 250, 131, 1], 250, H, Kh, D,
+                                  kv)
+    _check(decode_attention, decode_attention_plain, "decode_attention", a)
+
+
+@pytest.mark.parametrize("kv,G", [("bf16", 1), ("int8", 2), ("fp8", 4),
+                                  ("f32", 1)])
+def test_paged_decode_attention_matches_plain(gen, kv, G):
+    a = cases.paged_decode_inputs(gen, [40, 0, 150, 7, 96], 4 * G, 4, 96,
+                                  16, kv)
+    _check(paged_attention.paged_decode_attention,
+           paged_attention.paged_decode_attention_plain,
+           "paged_decode_attention", a)
+
+
+@pytest.mark.parametrize("kv,tree,G", [
+    ("bf16", False, 1), ("int8", True, 2), ("fp8", False, 4),
+    ("f32", True, 1)])
+def test_paged_verify_attention_matches_plain(gen, kv, tree, G):
+    a = cases.verify_inputs(gen, [37, 5, 90], 4, 4 * G, 4, 64, 16, kv, tree)
+    _check(paged_attention.paged_verify_attention,
+           paged_attention.paged_verify_attention_plain,
+           "paged_verify_attention", a)
+
+
+def test_dense_engine_launches_verify_attention(gen):
+    """One dense-layout serving run on the card (reduced zoo): every
+    request finishes and every packed verify layer launched the kernel."""
+    from repro_torch.launch.serve import build_zoo, make_selector
+    from repro_torch.data.workloads import make_workload
+    from repro_torch.serving.engine import EngineConfig, SpinEngine
+
+    llm, ssms = build_zoo(256, 0, 3, "cuda")
+    reqs = make_workload("mix", 4, 256, seed=0, scale=0.25)
+    sel = make_selector("lbss", len(ssms), 4)
+    eng = SpinEngine(llm, ssms, sel, EngineConfig(capacity=4,
+                                                  kv_layout="dense"))
+    eng.add_requests(reqs)
+    build.LAUNCHES.clear()
+    stats = eng.run(max_slots=200)
+    assert stats["kv_layout"] == "dense"
+    assert all(r.done for r in eng.requests.values())
+    verified = sum(1 for rec in eng.slot_log if rec.get("active"))
+    assert build.LAUNCHES["verify_attention"] == \
+        verified * llm.cfg.n_layers > 0
