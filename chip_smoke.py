@@ -23,7 +23,8 @@ script then exits non-zero without its last line.  Phases:
    inputs; then ``TIMED_RUNS`` timed runs, the kernels' launch counts set
    to 0 before and read after each (the first is the main path's run);
    then one run under ``torch.profiler`` for the device's busy time, read
-   against the timed runs' wall time;
+   against the timed runs' wall time; then layer 0's q/k/v of one seeded
+   2048-token prompt for phase 12;
 5. the dense main path: the same zoo and workload on the dense KV layout
    (``kv_layout="dense"``, packed verify through ``verify_attention``, 32
    launches per slot); one untimed pass keeping the kernel's largest
@@ -46,13 +47,34 @@ script then exits non-zero without its last line.  Phases:
    grid as phase 5's untimed pass left it, each row at its last request's
    length, with a seeded random query (``decode_attention``), launch counts
    as in phase 4;
-9. timing of each kernel on the largest call its path made (its own
-   inputs, kept in phases 4, 5 and 8): kernel, plain version and one PyTorch
-   library call (scaled_dot_product_attention on the gathered K/V, a
-   yardstick the port never calls), each the median of individually timed
-   launches with the L2 cache flushed before each; and the bound, the
-   larger of the bytes over 3.35 TB/s and the operations over the peak
-   rate of the input type.
+9. the MoE window path: mixtral-8x22b at published widths (d 6144, 48/8
+   heads, 8 experts top-2, window 4096, vocab 32768), depth cut to 4 of 56
+   layers, with the SSM zoo at the LLM's vocabulary, random bf16 weights;
+   its window sends the engine to the dense layout (plain windowed
+   attention, as the reference); one untimed and three timed runs; then
+   layer 0's q/k/v of one seeded 6144-token prompt (longer than the
+   window) for phase 12;
+10. the MoE paged path: dbrx-132b at published widths (16 experts top-4,
+   vocab 100352), 2 of 40 layers, paged bf16 KV, fused kernels (GQA group
+   6); one untimed pass keeping the kernels' largest inputs, three timed
+   runs (launch counts as in phase 4), then ``fused_paged_verify`` and
+   ``fused_paged_decode`` held against their plain versions on those
+   inputs;
+11. losslessness of mixtral-8x22b in float32 (1 layer, dense fallback,
+   unit-scale attention), against plain greedy decoding as in phase 6;
+12. ``flash_attention``: check shapes (bf16 and float32, D 64/96/128, GQA
+   groups 1/6/7, with and without a window, S not a multiple of the
+   tile) against its plain version; then ``ops.flash_attention`` on layer
+   0 of mixtral (S = 6144, window 4096) and of LLaMA-7B (S = 2048, phase
+   4's model), launch counts as in phase 4, each also held against
+   ``layers.attention`` and timed;
+13. timing of each kernel on the largest call its path made (its own
+   inputs, kept in phases 4, 5, 8 and 12): kernel, plain version and one
+   PyTorch library call (scaled_dot_product_attention, a yardstick the
+   port never calls), each the median of individually timed launches with
+   the L2 cache flushed before each; and the bound, the larger of the
+   bytes over 3.35 TB/s and the operations over the peak rate of the input
+   type.
 
 The last three lines are the kernels JSON, the card line of
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and
@@ -82,16 +104,18 @@ import torch.nn.functional as F  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.configs import spin_llama  # noqa: E402
+from repro_torch.configs import registry, spin_llama  # noqa: E402
 from repro_torch.core import spec_decode as sd  # noqa: E402
 from repro_torch.data.workloads import make_workload  # noqa: E402
 from repro_torch.kernels import (build, cases,  # noqa: E402
-                                 decode_attention, fused_decode,
-                                 fused_verify, ops, paged_attention, quant,
-                                 verify_attention)
+                                 decode_attention, flash_attention,
+                                 fused_decode, fused_verify, ops,
+                                 paged_attention, quant, verify_attention)
 from repro_torch.kernels.ref import tree_mask_term  # noqa: E402
 from repro_torch.launch.serve import make_selector  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.layers import (attention, embed,  # noqa: E402
+                                       rms_norm)
 from repro_torch.serving.engine import EngineConfig, SpinEngine  # noqa: E402
 from repro_torch.serving.pool import DenseCachePool  # noqa: E402
 
@@ -115,7 +139,12 @@ SOURCES = {
     "paged_verify_attention": (CSRC + "paged_attention.cu",
                                "src/repro/kernels/paged_attention.py:178",
                                "ops"),
+    "flash_attention": (CSRC + "flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:23", "flash"),
 }
+# the MoE paths' depth cuts: layers of the published 56 (mixtral) and 40
+# (dbrx) that one card holds beside the SSMs, in bf16
+MIXTRAL_LAYERS, DBRX_LAYERS = 4, 2
 PAGED = [n for n, (_, _, path) in SOURCES.items() if path == "paged"]
 
 
@@ -363,6 +392,31 @@ def library_paged_decode(a):
     return _library_dense_decode(a["q"], k, v, a["lengths"])
 
 
+def flash_work(a):
+    """q, k, v and the output once; 4 D operations per (query head,
+    attended key), the keys counted under the causal mask and window."""
+    B, S, H, D = a["q"].shape
+    t = torch.arange(S, dtype=torch.float64)
+    keys = t + 1 if not a["window"] else torch.clamp(t + 1, max=a["window"])
+    nbytes = (2 * a["q"].numel() + 2 * a["k"].numel()) * a["q"].element_size()
+    return nbytes, 4 * D * H * B * int(keys.sum())
+
+
+def library_flash(a):
+    """SDPA on (B, H, S, D) with GQA-expanded K/V: ``is_causal`` without a
+    window, a boolean (S, S) mask with one (the expansion and the mask are
+    set-up, outside the timing)."""
+    q = a["q"].transpose(1, 2)
+    G = q.shape[1] // a["k"].shape[2]
+    k, v = (a[n].repeat_interleave(G, 2).transpose(1, 2) for n in "kv")
+    if not a["window"]:
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True)
+    i = torch.arange(q.shape[2], device=q.device)
+    m = (i[None] <= i[:, None]) & (i[None] > i[:, None] - a["window"])
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+
+
 # name -> (kernel wrapper, plain version, work counter, library call)
 KERNELS = {
     "fused_paged_verify": (fused_verify.fused_paged_verify,
@@ -383,6 +437,9 @@ KERNELS = {
     "paged_verify_attention": (paged_attention.paged_verify_attention,
                                paged_attention.paged_verify_attention_plain,
                                verify_work, library_verify),
+    "flash_attention": (flash_attention.flash_attention,
+                        flash_attention.flash_attention_plain, flash_work,
+                        library_flash),
 }
 
 
@@ -418,7 +475,8 @@ def shape_of(a):
             and n in ("q", "k_pool", "k", "block_ids", "block_tables")} | {
         "kv": str(kv.dtype).replace("torch.", ""),
         "tree": (a.get("block_node") is not None
-                 or a.get("kv_node") is not None)}
+                 or a.get("kv_node") is not None)} | (
+        {"window": a["window"]} if "window" in a else {})
 
 
 def phase_kernel_checks(timer, report):
@@ -476,6 +534,12 @@ def phase_kernel_checks(timer, report):
                      f"llama-7b {kv} {'tree' if tree else 'linear'}",
                      cases.verify_inputs(gen, lens7b, 4, 32, 32, 128, 16, kv,
                                          tree)))
+    run_checks(todo, timer, report)
+
+
+def run_checks(todo, timer, report):
+    """Each (kernel, label, inputs) against its plain version, timed; one
+    ``check`` line each; raises if any disagrees."""
     failed = []
     for name, label, a in todo:
         rec = measure(name, a, timer)
@@ -495,16 +559,65 @@ def phase_kernel_checks(timer, report):
 
 # ------------------------------------------------------------ serving --
 
-def full_zoo(dtype: str, llm_layers: int = 0, ssm_layers: int = 0):
+def full_zoo(dtype: str, llm_layers: int = 0, ssm_layers: int = 0,
+             llm_cfg=spin_llama.LLAMA_7B):
+    """The LLM (``llm_cfg``, published widths, depth cut to ``llm_layers``
+    if given) and the SSMs LLaMA-68M/265M/616M at published widths with the
+    LLM's vocabulary; random weights from seeds 0 (LLM) and 1-3."""
     def bundle(cfg, seed, layers):
         cfg = dataclasses.replace(cfg, dtype=dtype,
-                                  n_layers=layers or cfg.n_layers)
+                                  n_layers=layers or cfg.n_layers,
+                                  vocab_size=llm_cfg.vocab_size)
         return sd.Bundle(cfg, T.init_params(cfg, seed, device="cuda"))
 
-    llm = bundle(spin_llama.LLAMA_7B, 0, llm_layers)
+    llm = bundle(llm_cfg, 0, llm_layers)
     ssms = [bundle(c, i + 1, ssm_layers and min(ssm_layers, c.n_layers))
             for i, c in enumerate(spin_llama.SSM_ZOO[:3])]
     return llm, ssms
+
+
+def describe(llm, ssms, what):
+    return (f"{llm.cfg.name} {llm.cfg.n_layers} layers d {llm.cfg.d_model} "
+            f"vocab {llm.cfg.vocab_size}; SSMs "
+            + ", ".join(f"{b.cfg.name} ({b.cfg.n_layers}x{b.cfg.d_model})"
+                        for b in ssms) + f"; {what}")
+
+
+def timed_runs(llm, ssms, required=(), check_run=None, **kw):
+    """``TIMED_RUNS`` warm runs of ``serve``, the launch counts set to 0
+    before and read after each; every kernel in ``required`` must launch,
+    and ``check_run(eng, stats, launches)`` may check more.  Returns the
+    summary line (launches from the first run)."""
+    runs = []
+    for _ in range(TIMED_RUNS):
+        build.LAUNCHES.clear()
+        eng, stats, wall = serve(llm, ssms, 6, 0.3, **kw)
+        launches = dict(build.LAUNCHES)
+        for name in required:
+            check(launches.get(name, 0) > 0, f"{name} never launched")
+        if check_run is not None:
+            check_run(eng, stats, launches)
+        runs.append(dict(wall_s=wall, slots=len(eng.slot_log),
+                         accepted_tokens=stats["accepted_tokens"],
+                         launches=launches, stats=stats))
+    main = runs[0]
+    walls = [r["wall_s"] for r in runs]
+    line = dict(goodput_sim=main["stats"]["goodput_sim"], wall_s=walls,
+                wall_spread=(max(walls) - min(walls))
+                / statistics.median(walls),
+                tokens_per_s_wall=[r["accepted_tokens"] / r["wall_s"]
+                                   for r in runs],
+                accepted_tokens=[r["accepted_tokens"] for r in runs],
+                slots=[r["slots"] for r in runs],
+                finished=main["stats"]["scheduler"]["finished"],
+                kv_layout=main["stats"]["kv_layout"],
+                launches=main["launches"],
+                launches_per_slot={k: v / main["slots"]
+                                   for k, v in main["launches"].items()},
+                wall_ms_per_slot=statistics.median(
+                    r["wall_s"] / r["slots"] for r in runs) * 1e3,
+                llm_layers=llm.cfg.n_layers)
+    return line
 
 
 def serve(llm, ssms, n_req, scale, around=None, fused_kernels="on",
@@ -582,53 +695,24 @@ class Tap:
 
 def phase_main_path(report):
     llm, ssms = full_zoo("bfloat16")
-    log(f"main path: {llm.cfg.name} {llm.cfg.n_layers} layers d "
-        f"{llm.cfg.d_model} vocab {llm.cfg.vocab_size}; SSMs "
-        + ", ".join(f"{b.cfg.name} ({b.cfg.n_layers}x{b.cfg.d_model})"
-                    for b in ssms) + "; bf16 weights, paged bf16 KV")
+    log("main path: " + describe(llm, ssms, "bf16 weights, paged bf16 KV"))
     # untimed: the first use of every shape, and the kernels' inputs
     taps = {"fused_paged_verify": Tap(ops, "fused_paged_verify"),
             "fused_paged_decode": Tap(ops, "fused_paged_decode")}
     with taps["fused_paged_verify"], taps["fused_paged_decode"]:
         serve(llm, ssms, 6, 0.3, capacity=6)
     captured = {n: t.best for n, t in taps.items()}
-
-    runs = []
-    for _ in range(TIMED_RUNS):
-        build.LAUNCHES.clear()
-        eng, stats, wall = serve(llm, ssms, 6, 0.3, capacity=6)
-        launches = dict(build.LAUNCHES)
-        for name in PAGED:
-            check(launches.get(name, 0) > 0, f"{name} never launched")
-        runs.append(dict(wall_s=wall, slots=len(eng.slot_log),
-                         accepted_tokens=stats["accepted_tokens"],
-                         launches=launches, stats=stats))
-        del eng
-    main = runs[0]
-    walls = [r["wall_s"] for r in runs]
-    wall_slot = statistics.median(r["wall_s"] / r["slots"] for r in runs)
+    line = timed_runs(llm, ssms, PAGED, capacity=6)
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     eng, _, prof_wall = serve(llm, ssms, 6, 0.3, capacity=6, around=prof)
     busy_ms, per_name = device_time(prof)
     check(busy_ms > 0, "the profiler saw no device activity")
     busy_slot = busy_ms / len(eng.slot_log)
-    line = dict(goodput_sim=main["stats"]["goodput_sim"],
-                wall_s=walls, wall_spread=(max(walls) - min(walls))
-                / statistics.median(walls),
-                tokens_per_s_wall=[r["accepted_tokens"] / r["wall_s"]
-                                   for r in runs],
-                accepted_tokens=[r["accepted_tokens"] for r in runs],
-                slots=[r["slots"] for r in runs],
-                finished=main["stats"]["scheduler"]["finished"],
-                launches=main["launches"],
-                launches_per_slot={k: v / main["slots"]
-                                   for k, v in main["launches"].items()},
-                wall_ms_per_slot=wall_slot * 1e3,
-                device_busy_ms_per_slot=busy_slot,
-                device_busy_share=busy_slot / (wall_slot * 1e3),
+    line.update(device_busy_ms_per_slot=busy_slot,
+                device_busy_share=busy_slot / line["wall_ms_per_slot"],
                 profiled_wall_ms_per_slot=prof_wall * 1e3 / len(eng.slot_log),
-                llm_layers=llm.cfg.n_layers, depth_cut=False,
+                depth_cut=False,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     log("main path stats (warm; launches from the first timed run; device "
         "busy time from a profiled run, over the timed runs' wall time) "
@@ -638,9 +722,11 @@ def phase_main_path(report):
     log("main path device ms by kernel (profiled run) " + json.dumps(
         {k[:90]: {"device_ms": ms, "calls": n} for k, (ms, n) in shown}))
     report["main_path"] = line
+    # flash_attention's LLaMA-7B input: layer 0 of this model
+    qkv = layer0_qkv(llm, 2048, seed=7)
     del eng, llm, ssms, prof
     torch.cuda.empty_cache()
-    return main["launches"], captured, wall_slot * 1e3
+    return line["launches"], captured, line["wall_ms_per_slot"], qkv
 
 
 def phase_dense_main_path(report, paged_ms_per_slot):
@@ -648,10 +734,8 @@ def phase_dense_main_path(report, paged_ms_per_slot):
     verify through ``verify_attention`` on every LLM layer of every slot,
     drafts and catch-up in plain PyTorch over the dense grids."""
     llm, ssms = full_zoo("bfloat16")
-    log(f"dense main path: {llm.cfg.name} {llm.cfg.n_layers} layers d "
-        f"{llm.cfg.d_model}; SSMs "
-        + ", ".join(f"{b.cfg.name} ({b.cfg.n_layers}x{b.cfg.d_model})"
-                    for b in ssms) + "; bf16 weights, dense bf16 KV")
+    log("dense main path: " + describe(llm, ssms,
+                                       "bf16 weights, dense bf16 KV"))
     kw = dict(capacity=6, kv_layout="dense", fused_kernels="off")
     evict, row_len = DenseCachePool.evict, {}
 
@@ -681,11 +765,8 @@ def phase_dense_main_path(report, paged_ms_per_slot):
         lengths=torch.tensor([row_len.get(b, 0) for b in range(B)],
                              dtype=torch.int32, device=cache["k"].device))
     del eng, cache
-    runs = []
-    for _ in range(TIMED_RUNS):
-        build.LAUNCHES.clear()
-        eng, stats, wall = serve(llm, ssms, 6, 0.3, **kw)
-        launches = dict(build.LAUNCHES)
+
+    def check_run(eng, stats, launches):
         verified = sum(1 for rec in eng.slot_log if rec.get("active"))
         check(stats["kv_layout"] == "dense", "the engine did not go dense")
         check(launches.get("verify_attention", 0)
@@ -694,35 +775,16 @@ def phase_dense_main_path(report, paged_ms_per_slot):
               f"verify slots of {llm.cfg.n_layers} layers")
         check(set(launches) == {"verify_attention"},
               f"the dense path launched other kernels: {launches}")
-        runs.append(dict(wall_s=wall, slots=len(eng.slot_log),
-                         verify_slots=verified,
-                         accepted_tokens=stats["accepted_tokens"],
-                         launches=launches, stats=stats))
-        del eng
-    main = runs[0]
-    walls = [r["wall_s"] for r in runs]
-    wall_slot = statistics.median(r["wall_s"] / r["slots"] for r in runs)
-    line = dict(goodput_sim=main["stats"]["goodput_sim"], wall_s=walls,
-                wall_spread=(max(walls) - min(walls))
-                / statistics.median(walls),
-                tokens_per_s_wall=[r["accepted_tokens"] / r["wall_s"]
-                                   for r in runs],
-                accepted_tokens=[r["accepted_tokens"] for r in runs],
-                slots=[r["slots"] for r in runs],
-                finished=main["stats"]["scheduler"]["finished"],
-                launches=main["launches"],
-                launches_per_slot={k: v / main["slots"]
-                                   for k, v in main["launches"].items()},
-                wall_ms_per_slot=wall_slot * 1e3,
-                paged_wall_ms_per_slot=paged_ms_per_slot,
-                llm_layers=llm.cfg.n_layers, depth_cut=False)
+
+    line = timed_runs(llm, ssms, check_run=check_run, **kw)
+    line.update(paged_wall_ms_per_slot=paged_ms_per_slot, depth_cut=False)
     log("dense main path stats (warm; launches from the first timed run; "
         "paged wall ms per slot from this call's phase 4) "
         + json.dumps(line))
     report["dense_main_path"] = line
     del llm, ssms
     torch.cuda.empty_cache()
-    return main["launches"], captured, grid
+    return line["launches"], captured, grid
 
 
 def greedy_reference(llm, prompt, n_new):
@@ -845,6 +907,139 @@ def phase_chunked(report):
     torch.cuda.empty_cache()
 
 
+def layer0_qkv(llm, S, seed):
+    """Layer 0's q, k, v (RoPE applied) of ``llm`` for one seeded prompt
+    of S tokens at positions 0..S-1: flash_attention's input on a
+    full-width model's data."""
+    cfg, p = llm.cfg, llm.params["layers"][0]
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen)
+    x = embed(toks.to("cuda"), llm.params["embed"]).to(cfg.compute_dtype)
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")[None]
+    with torch.no_grad():
+        q, k, v = T.project_qkv(p, rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+                                pos)
+    return dict(q=q.contiguous(), k=k.contiguous(), v=v.contiguous(),
+                window=cfg.sliding_window, model=cfg.name)
+
+
+def phase_moe_window_path(report):
+    """mixtral-8x22b at published widths, depth cut to ``MIXTRAL_LAYERS``:
+    its window sends the engine to the dense layout (plain windowed
+    attention, as the reference's path; no kernel of the repo runs)."""
+    llm, ssms = full_zoo("bfloat16", MIXTRAL_LAYERS,
+                         llm_cfg=registry.get("mixtral-8x22b"))
+    log("MoE window path: " + describe(llm, ssms, "bf16 weights; the "
+                                       "window forces the dense layout"))
+    serve(llm, ssms, 6, 0.3, capacity=6)           # untimed
+    line = timed_runs(llm, ssms, capacity=6)
+    check(line["kv_layout"] == "dense", "mixtral did not go dense")
+    check(line["finished"] == 6, f"{line['finished']} of 6 finished")
+    line.update(depth_cut=f"{MIXTRAL_LAYERS} of 56 layers",
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    log("MoE window path stats (mixtral; warm) " + json.dumps(line))
+    report["moe_window_path"] = line
+    # flash_attention's windowed input: S = 6144 > the 4096 window
+    qkv = layer0_qkv(llm, 6144, seed=7)
+    del llm, ssms
+    torch.cuda.empty_cache()
+    return qkv
+
+
+def phase_moe_paged_path(report, timer):
+    """dbrx-132b at published widths, depth cut to ``DBRX_LAYERS``, on
+    paged bf16 KV with the fused kernels: kernels #1 and #2 at GQA group
+    6; then both held against their plain versions on this path's largest
+    calls."""
+    llm, ssms = full_zoo("bfloat16", DBRX_LAYERS,
+                         llm_cfg=registry.get("dbrx-132b"))
+    log("MoE paged path: " + describe(llm, ssms, "bf16 weights, paged "
+                                      "bf16 KV, fused kernels"))
+    taps = {"fused_paged_verify": Tap(ops, "fused_paged_verify"),
+            "fused_paged_decode": Tap(ops, "fused_paged_decode")}
+    with taps["fused_paged_verify"], taps["fused_paged_decode"]:
+        serve(llm, ssms, 6, 0.3, capacity=6)       # untimed
+    line = timed_runs(llm, ssms, PAGED, capacity=6)
+    check(line["kv_layout"] == "paged", "dbrx did not run paged")
+    check(line["finished"] == 6, f"{line['finished']} of 6 finished")
+    line.update(depth_cut=f"{DBRX_LAYERS} of 40 layers",
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    log("MoE paged path stats (dbrx; warm; launches from the first timed "
+        "run) " + json.dumps(line))
+    report["moe_paged_path"] = line
+    del llm, ssms
+    torch.cuda.empty_cache()
+    run_checks([(n, "dbrx-132b paged path, largest call", t.best)
+                for n, t in taps.items()], timer, report)
+
+
+def phase_moe_lossless(report):
+    """Float32 mixtral-8x22b at published widths, 1 layer, on the dense
+    fallback, unit-scale attention (see ``unit_attention``): the engine's
+    tokens against plain greedy decoding."""
+    llm, ssms = full_zoo("float32", 1, llm_cfg=registry.get("mixtral-8x22b"))
+    unit_attention([llm] + ssms)
+    run, _, _ = lossless_run(llm, ssms, "off", kv_layout="dense")
+    bad = [d for d in run["divergences"] if d["gap"] >= 1e-4]
+    check(not bad, f"mixtral: tokens differ from greedy decoding at top-2 "
+          f"gaps >= 1e-4: {bad}")
+    log("lossless mixtral-8x22b (float32, 1 layer, dense fallback, "
+        "unit-scale attention) " + json.dumps(run))
+    report["moe_lossless"] = run
+    del llm, ssms
+    torch.cuda.empty_cache()
+
+
+def phase_flash(report, timer, path_inputs):
+    """flash_attention: the check shapes against the plain version, then
+    the ops call on the full-width models' layer-0 q/k/v (launch counts
+    as in phase 4), each also held against ``layers.attention`` (the same
+    function for one unpadded segment)."""
+    gen = torch.Generator().manual_seed(13)
+    todo = []
+    for kv, S, H, Kh, D, window, tag in (
+            ("bf16", 1000, 14, 2, 64, 0, "qwen2-0.5b G 7"),
+            ("f32", 777, 14, 2, 64, 256, "qwen2-0.5b G 7"),
+            ("bf16", 1500, 16, 16, 96, 0, "llama-616m"),
+            ("f32", 600, 12, 2, 96, 100, "D 96 G 6"),
+            ("bf16", 2049, 48, 8, 128, 512, "mixtral G 6"),
+            ("f32", 1000, 32, 32, 128, 0, "llama-7b"),
+            ("bf16", 333, 56, 8, 128, 0, "G 7 D 128")):
+        todo.append(("flash_attention",
+                     f"{tag} S={S} window={window} {kv}",
+                     cases.flash_inputs(gen, 1, S, H, Kh, D, kv, window)))
+    run_checks(todo, timer, report)
+
+    build.LAUNCHES.clear()
+    outs = [ops.flash_attention(a["q"], a["k"], a["v"], window=a["window"])
+            for a in path_inputs]
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    check(launches.get("flash_attention", 0) == len(path_inputs),
+          f"flash_attention launched {launches}")
+    lines = []
+    for a, out in zip(path_inputs, outs):
+        S = a["q"].shape[1]
+        pos = torch.arange(S, dtype=torch.int32, device="cuda")[None]
+        want = attention(a["q"], a["k"], a["v"], q_positions=pos,
+                         kv_positions=pos, window=a["window"])
+        err = (out.float() - want.float()).abs().max().item()
+        tol = (2.0 ** -6 if out.dtype == torch.bfloat16 else 1e-4) * max(
+            1.0, want.float().abs().max().item())
+        check(bool(torch.isfinite(out.float()).all()) and err <= tol,
+              f"flash_attention on {a['model']} differs from "
+              f"layers.attention by {err} (tol {tol})")
+        lines.append(dict(model=a["model"], shape=shape_of(a),
+                          err_vs_layers_attention=err, tol=tol))
+    log("flash path (ops.flash_attention on layer 0 of the full-width "
+        "models) " + json.dumps(dict(launches=launches, calls=lines)))
+    run_checks([("flash_attention", f"{a['model']} layer 0",
+                 {n: a[n] for n in ("q", "k", "v", "window")})
+                for a in path_inputs], timer, report)
+    report["flash_path"] = dict(launches=launches, calls=lines)
+    return launches
+
+
 def phase_ops_path(report, paged_verify, paged_decode, dense_grid):
     """The public kernel API of the three kernels no serving path runs,
     on the main paths' data (see the module docstring, phase 8).  Returns
@@ -929,7 +1124,8 @@ def main():
         return out
 
     timed(phase_kernel_checks, timer, report)
-    paged_launches, captured, paged_ms = timed(phase_main_path, report)
+    paged_launches, captured, paged_ms, llama_qkv = timed(phase_main_path,
+                                                          report)
     dense_launches, dense_captured, dense_grid = timed(
         phase_dense_main_path, report, paged_ms)
     timed(phase_lossless, report)
@@ -937,9 +1133,16 @@ def main():
     ops_launches, ops_inputs = timed(
         phase_ops_path, report, captured["fused_paged_verify"],
         captured["fused_paged_decode"], dense_grid)
+    mixtral_qkv = timed(phase_moe_window_path, report)
+    timed(phase_moe_paged_path, report, timer)
+    timed(phase_moe_lossless, report)
+    flash_launches = timed(phase_flash, report, timer,
+                           [mixtral_qkv, llama_qkv])
     launches = {"paged": paged_launches, "dense": dense_launches,
-                "ops": ops_launches}
-    inputs = {**captured, "verify_attention": dense_captured, **ops_inputs}
+                "ops": ops_launches, "flash": flash_launches}
+    inputs = {**captured, "verify_attention": dense_captured, **ops_inputs,
+              "flash_attention": {n: mixtral_qkv[n]
+                                  for n in ("q", "k", "v", "window")}}
 
     kernels = []
     for name, (source, replaces, path) in SOURCES.items():

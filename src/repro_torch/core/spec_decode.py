@@ -29,7 +29,7 @@ class Bundle:
 
     @property
     def device(self) -> torch.device:
-        return self.params["embed"].device
+        return self.params["final_norm"].device
 
     def prefill(self, toks, lengths, max_len):
         return T.prefill(self.params, self.cfg, tokens=toks, lengths=lengths,

@@ -9,9 +9,9 @@ happens at first use; :func:`build_all` starts one ``nvcc`` per source, all
 at once, and waits for them.
 
 The wrappers (``fused_verify.py``, ``fused_decode.py``,
-``verify_attention.py``, ``decode_attention.py``, ``paged_attention.py``)
-share the argument checks below and count their launches in
-:data:`LAUNCHES`.
+``verify_attention.py``, ``decode_attention.py``, ``paged_attention.py``,
+``flash_attention.py``) share the argument checks below and count their
+launches in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("fused_verify", "fused_decode", "verify_attention",
-           "decode_attention", "paged_attention")
+           "decode_attention", "paged_attention", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -150,7 +150,7 @@ def raise_on(rc: int, name: str):
                            f"({torch.cuda.get_device_name()})")
 
 
-def _check(name, t, shape, dtypes, device):
+def check_tensor(name, t, shape, dtypes, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
@@ -166,7 +166,7 @@ def _check(name, t, shape, dtypes, device):
 def check_int(name, t, shape, device):
     """An optional int32 index/tag tensor (None passes)."""
     if t is not None:
-        _check(name, t, shape, (torch.int32,), device)
+        check_tensor(name, t, shape, (torch.int32,), device)
 
 
 def check_heads(q, k):
@@ -181,15 +181,16 @@ def check_heads(q, k):
                          f"(q head dim {q.shape[-1]}, D <= {MAX_D})")
     if (H // Kh) > MAX_ROWS:
         raise ValueError(f"GQA group {H // Kh} exceeds {MAX_ROWS} rows/CTA")
-    _check("q", q, q.shape, tuple(Q_CODES), dev)
+    check_tensor("q", q, q.shape, tuple(Q_CODES), dev)
 
 
 def check_dense(q, k, v, k_shape):
     """Checks of the dense kernels (float K/V, no scales); returns (q dtype
     code, kv code)."""
     check_heads(q, k)
-    _check("k", k, k_shape, (torch.float32, torch.bfloat16), q.device)
-    _check("v", v, k_shape, (k.dtype,), q.device)
+    check_tensor("k", k, k_shape, (torch.float32, torch.bfloat16),
+                 q.device)
+    check_tensor("v", v, k_shape, (k.dtype,), q.device)
     return Q_CODES[q.dtype], KV_CODES[k.dtype]
 
 
@@ -199,8 +200,9 @@ def check_pools(q, k_pool, v_pool, pool_seg, pool_pos, k_scale, v_scale):
     check_heads(q, k_pool)
     dev = q.device
     N, bs, Kh, D = k_pool.shape
-    _check("k_pool", k_pool, (N, bs, Kh, D), tuple(KV_CODES), dev)
-    _check("v_pool", v_pool, (N, bs, Kh, D), (k_pool.dtype,), dev)
+    check_tensor("k_pool", k_pool, (N, bs, Kh, D), tuple(KV_CODES), dev)
+    check_tensor("v_pool", v_pool, (N, bs, Kh, D), (k_pool.dtype,),
+                 dev)
     check_int("pool_seg", pool_seg, (N, bs), dev)
     check_int("pool_pos", pool_pos, (N, bs), dev)
     quantized = k_pool.dtype in (torch.int8, torch.float8_e4m3fn)
@@ -209,6 +211,6 @@ def check_pools(q, k_pool, v_pool, pool_seg, pool_pos, k_scale, v_scale):
         raise ValueError("int8/fp8 pools need k_scale and v_scale; "
                          "float pools take none")
     if quantized:
-        _check("k_scale", k_scale, (N, bs, Kh), (torch.float32,), dev)
-        _check("v_scale", v_scale, (N, bs, Kh), (torch.float32,), dev)
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            check_tensor(name, t, (N, bs, Kh), (torch.float32,), dev)
     return Q_CODES[q.dtype], KV_CODES[k_pool.dtype]

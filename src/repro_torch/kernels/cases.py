@@ -3,8 +3,8 @@
 path (fragmented block placement, idle rows, bucket-padding queries,
 trailing padding entries, rolled-back slots, tree node tags and 32-bit
 ancestor masks; for the dense kernels interleaved packed fragments,
-padding cells, zero-length rows) for checking a kernel against its plain
-version.  Test
+padding cells, zero-length rows; for prefill attention ragged lengths and
+windows) for checking a kernel against its plain version.  Test
 support only: ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` use it, no
 serving code imports it, and it is not part of the package's API.  ``kv``
 names the pool
@@ -196,3 +196,13 @@ def paged_decode_inputs(gen, lens, H, Kh, D, bs, kv, device="cuda"):
                k_scale=ks, v_scale=vs)
     return {n: None if t is None else t.to(device).contiguous()
             for n, t in out.items()}
+
+
+def flash_inputs(gen, B, S, H, Kh, D, kv, window=0, device="cuda"):
+    """``flash_attention``: random q (B, S, H, D) and k, v (B, S, Kh, D) of
+    one float type, and the window (0 = causal only)."""
+    out = dict(q=_floats(gen, (B, S, H, D), kv),
+               k=_floats(gen, (B, S, Kh, D), kv),
+               v=_floats(gen, (B, S, Kh, D), kv))
+    return {n: t.to(device).contiguous() for n, t in out.items()} | dict(
+        window=window)

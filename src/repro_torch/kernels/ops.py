@@ -3,13 +3,13 @@ signatures.  Each dispatches on the tensors' device: the plain PyTorch
 version on the CPU, the CUDA kernel on the card.  Tile arguments that the
 reference uses only as TPU tiles (``bq``, ``bk``, ``config``) are accepted
 and ignored: the CUDA kernels fix their own tiles (see ``autotune.py``).
-The one Pallas kernel of the reference not ported yet, ``flash_attention``,
-waits in ROADMAP Queue 2.
+Every Pallas kernel of the reference has its CUDA kernel here.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import decode_attention as _dense
+from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.fused_decode import fused_paged_decode as _decode
 from repro_torch.kernels.fused_verify import fused_paged_verify as _verify
 from repro_torch.kernels.paged_attention import (
@@ -23,6 +23,13 @@ def verify_attention(q, k, v, q_seg, q_pos, kv_seg, kv_pos, q_anc=None,
     """Dense packed verification over a flat tagged KV buffer
     (kernels/verify_attention.py); optional tree topology q_anc/kv_node."""
     return _packed(q, k, v, q_seg, q_pos, kv_seg, kv_pos, q_anc, kv_node)
+
+
+def flash_attention(q, k, v, *, window: int = 0, bq: int = 128,
+                    bk: int = 128):
+    """Causal prefill attention, optional sliding window, GQA
+    (kernels/flash_attention.py)."""
+    return _flash(q, k, v, window=window)
 
 
 def decode_attention(q, k, v, lengths, *, bk=None):

@@ -142,3 +142,22 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths,
     k = _maybe_dequant(k_pool, k_scale, g).reshape(B, -1, *k_pool.shape[2:])
     v = _maybe_dequant(v_pool, v_scale, g).reshape(B, -1, *v_pool.shape[2:])
     return decode_attention_ref(q, k, v, lengths)
+
+
+def mha_ref(q, k, v, *, causal=True, window=0):
+    """Plain (optionally sliding-window) causal attention, GQA: the whole
+    (S, S) score matrix, masked at -1e30, float32 softmax.  q: (B, S, H,
+    D); k, v: (B, S, Kh, D).  Returns q's dtype."""
+    B, S, H, Dh = q.shape
+    Kh = k.shape[2]
+    qf = q.float().reshape(B, S, Kh, H // Kh, Dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) / math.sqrt(Dh)
+    i = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= i[None, :] <= i[:, None]
+    if window:
+        mask &= i[None, :] > (i[:, None] - window)
+    p = torch.softmax(torch.where(mask, s, NEG), dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, S, H, Dh).to(q.dtype)

@@ -4,9 +4,9 @@ One frozen dataclass covers every assigned architecture family:
 dense / moe / ssm (mamba2, xlstm) / hybrid / audio-backbone / vlm-backbone.
 
 Per-layer structure is expressed with ``unit``: a tuple of block kind
-strings repeated ``n_units`` times, plus an optional ``tail``.  The port
-runs the dense attention-only stack (``unit == (ATTN,)``); the other block
-kinds are declared so every configuration of the reference loads.
+strings repeated ``n_units`` times, plus an optional ``tail``; the fields
+and derived properties are the reference's (``repro.models.config``), so
+every configuration of ``configs/registry.py`` loads and runs.
 """
 
 from __future__ import annotations

@@ -1,0 +1,76 @@
+"""Mixture-of-Experts FFN (top-k routing, capacity-bounded, sort-free).
+
+Port of the reference's ``models/moe.py``.  Dispatch places each (token,
+choice) pair at its rank inside its expert; pairs ranked past the capacity
+``C`` are dropped.  The expert products run as batched matmuls over the
+(E, C) slots, as the reference leaves them to XLA.
+
+Two places where PyTorch differs from JAX and the port keeps the
+reference's result:
+
+* ``lax.top_k`` breaks ties by the lower index; ``torch.topk`` promises no
+  order, so the experts come from a stable sort on ``-probs``;
+* the reference scatters dropped pairs through the out-of-range expert
+  ``E`` (``mode="drop"``); here they land in one spare slot past the
+  (E, C) grid, which is cut off, so no index is ever out of bounds and no
+  host sync is needed.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def capacity(n_tokens: int, n_experts: int, top_k: int, cf: float) -> int:
+    c = int(n_tokens * top_k * cf / n_experts)
+    return max(128, int((c + 127) // 128 * 128))  # 128-aligned
+
+
+def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int, cf: float):
+    """x: (T, d).  w_*: (E, d, ff) / (E, ff, d).  Returns (out (T, d),
+    load-balancing aux loss, router z-loss)."""
+    T, d = x.shape
+    E = router_w.shape[1]
+    C = capacity(T, E, top_k, cf)
+
+    logits = x.float() @ router_w.float()  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    expert_ids = torch.sort(-probs, dim=-1, stable=True).indices[:, :top_k]
+    gate_vals = torch.gather(probs, 1, expert_ids)  # (T, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    flat_e = expert_ids.reshape(-1)  # (T*k,)
+    onehot = F.one_hot(flat_e, E)  # (T*k, E)
+    # rank of each pair inside its expert
+    pos = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
+    keep = pos < C
+    token_idx = torch.arange(T, device=x.device).repeat_interleave(top_k)
+
+    # slot of each kept pair in the flat (E*C) grid; dropped pairs go to
+    # the spare slot E*C.  Unfilled slots keep token 0 with validity 0.
+    flat = torch.where(keep, flat_e * C + pos, E * C)
+    slot_tok = torch.zeros(E * C + 1, dtype=torch.long, device=x.device)
+    slot_tok.scatter_(0, flat, token_idx)
+    slot_valid = torch.zeros(E * C + 1, dtype=x.dtype, device=x.device)
+    slot_valid.scatter_(0, flat, torch.ones_like(flat, dtype=x.dtype))
+    slot_tok = slot_tok[: E * C].view(E, C)
+    slot_valid = slot_valid[: E * C].view(E, C)
+
+    xin = x[slot_tok] * slot_valid[..., None]  # (E, C, d)
+    h = F.silu(torch.bmm(xin, w_gate)) * torch.bmm(xin, w_up)
+    y = torch.bmm(h, w_down)  # (E, C, d)
+
+    # combine: each (token, choice) reads its expert's output slot
+    yk = y[flat_e, torch.where(keep, pos, 0)]  # (T*k, d)
+    yk = yk * keep[:, None].to(y.dtype)
+    yk = yk.reshape(T, top_k, d) * gate_vals[..., None].to(y.dtype)
+    out = yk.sum(1)
+
+    # load-balancing aux loss (Switch-style) + router z-loss
+    me = probs.mean(0)
+    ce = F.one_hot(expert_ids[:, 0], E).float().mean(0)
+    aux = E * torch.sum(me * ce)
+    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return out.to(x.dtype), aux, zloss

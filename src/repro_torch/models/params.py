@@ -81,10 +81,14 @@ def from_jax_numpy(tree, cfg, device, dtype=None):
     """The reference's parameter tree, as numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's parameters.
 
-    The reference stacks the dense block's weights along a leading layer
-    axis under ``tree["scan"]["u0_attn"]``; the port keeps a per-layer
-    list under ``"layers"``.  Arrays pass through float32 (numpy has no
-    bfloat16) and land in ``dtype`` (default: the config's compute dtype).
+    The reference stacks unit position ``i`` of kind ``kind`` along a
+    leading unit axis under ``tree["scan"][f"u{i}_{kind}"]`` and keeps the
+    trailing blocks as ``tree[f"tail{i}_{kind}"]``; the port keeps one
+    block dict per application under ``"layers"``, in application order
+    (unit 0's blocks, unit 1's, ..., then the tail).  ``embed``,
+    ``lm_head``, ``final_norm`` and ``shared_attn`` pass through where the
+    tree has them.  Arrays pass through float32 (numpy has no bfloat16)
+    and land in ``dtype`` (default: the config's compute dtype).
     """
     dtype = dtype or cfg.compute_dtype
 
@@ -92,10 +96,16 @@ def from_jax_numpy(tree, cfg, device, dtype=None):
         return torch.tensor(np.asarray(a, np.float32), device=device,
                             dtype=dtype)
 
-    out = {k: t(v) for k, v in tree.items() if k != "scan"}
-    stacked = tree["scan"]["u0_attn"]
+    def block(leaves, unit=None):
+        return {name: t(a if unit is None else a[unit])
+                for name, a in leaves.items()}
+
+    out = {k: t(tree[k]) for k in ("embed", "lm_head", "final_norm")
+           if k in tree}
+    if "shared_attn" in tree:
+        out["shared_attn"] = block(tree["shared_attn"])
     out["layers"] = [
-        {name: t(a[layer]) for name, a in stacked.items()}
-        for layer in range(cfg.n_layers)
-    ]
+        block(tree["scan"][f"u{i}_{kind}"], unit)
+        for unit in range(cfg.n_units) for i, kind in enumerate(cfg.unit)
+    ] + [block(tree[f"tail{i}_{kind}"]) for i, kind in enumerate(cfg.tail)]
     return out

@@ -1,19 +1,26 @@
-"""Decoder-only LM for the dense attention-only family (``unit == (ATTN,)``).
+"""Decoder-only LM assembly for every architecture family of the registry.
 
-Parameters are a dict: ``embed``, ``lm_head``, ``final_norm`` and
-``layers``, a per-layer list of block dicts (the reference stacks them for
-``lax.scan``; here the stack is a Python loop).
+Parameters are a dict: ``embed`` (token inputs), ``lm_head`` (unless tied),
+``final_norm``, ``layers`` — one block dict per application, in the order
+of :func:`block_kinds` (the reference stacks each unit position for
+``lax.scan``; here the stack is a Python loop) — and ``shared_attn``, the
+weights every ``SHARED_ATTN`` application reuses (its ``ln1`` is private).
 
-Caches are one dict of layer-stacked tensors — ``k``/``v``
-``(L, B, S, Kh, hd)`` plus per-slot absolute positions and segment ids
-``pos``/``seg`` ``(L, B, S)`` (-1 = empty slot).  Paged pools use the same
-dict with ``(L, num_blocks, block_size, ...)`` leaves and, for quantized
-storage, ``k_scale``/``v_scale`` ``(L, num_blocks, block_size, Kh)``.
-Layer ``l`` works on the views ``t[l]``; every cache write updates the
-stacked tensors **in place** (the reference is functional) and the entry
-points return the same dict for symmetry with the reference.
+Caches are one dict of layer-stacked tensors.  The attention-bearing
+blocks (``ATTN``, ``MOE``, ``SHARED_ATTN``, in application order) share
+``k``/``v`` ``(L_attn, B, S, Kh, hd)`` plus per-slot absolute positions
+and segment ids ``pos``/``seg`` ``(L_attn, B, S)`` (-1 = empty slot).
+Paged pools use the same leaves with ``(L_attn, num_blocks, block_size,
+...)`` axes and, for quantized storage, ``k_scale``/``v_scale``.
+Recurrent blocks keep their state in entries of their own, stacked over
+the blocks of that kind: ``ssd``/``conv`` (Mamba2), ``mlstm_C``/
+``mlstm_n`` (mLSTM), ``slstm_c``/``_n``/``_h``/``_m`` (sLSTM).  Every
+cache write updates the stacked tensors **in place** (the reference is
+functional) and the entry points return the same dict for symmetry with
+the reference.
 
 Entry points
+  apply(...)               full-sequence forward, no cache
   prefill(...)             forward + cache construction
   decode_step(...)         T new tokens per row against a cache
   verify_step_packed(...)  SPIN packed verification through an override
@@ -21,6 +28,7 @@ Entry points
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any, Dict
 
@@ -28,55 +36,100 @@ import torch
 
 from repro_torch.kernels import quant
 from repro_torch.models import config as C
+from repro_torch.models import mamba2, moe, xlstm
 from repro_torch.models import params as pp
 from repro_torch.models.layers import attention, embed, rms_norm, rope, swiglu
 from repro_torch.models.params import P
+
+ATTN_KINDS = (C.ATTN, C.MOE, C.SHARED_ATTN)
+ATTN_LEAVES = ("k", "v", "pos", "seg", "k_scale", "v_scale")
 
 
 @dataclasses.dataclass(frozen=True)
 class Opts:
     q_block: int = 512  # query-block size of chunked attention
+    ssd_chunk: int = 128  # mamba2 / mlstm chunk length
 
 
-def check_supported(cfg: C.ModelConfig):
-    """The port runs the dense attention-only stack; other block kinds
-    wait in ROADMAP Queue 1 (models off the main path)."""
-    kinds = set(cfg.unit) | set(cfg.tail)
-    if kinds != {C.ATTN} or cfg.qkv_bias or not cfg.embed_inputs:
-        raise ValueError(
-            f"{cfg.name}: the port serves dense attention-only models "
-            f"(unit (attn,), no qkv bias, token inputs); blocks "
-            f"{sorted(kinds)} wait in ROADMAP Queue 1")
+def block_kinds(cfg: C.ModelConfig):
+    """The kind of every block application, in order."""
+    return list(cfg.unit) * cfg.n_units + list(cfg.tail)
+
+
+def _group(kind: str) -> str:
+    """Blocks of one group share cache entries: the attention kinds share
+    one stack, each recurrent kind has its own."""
+    return "attn" if kind in ATTN_KINDS else kind
+
+
+def cache_slots(cfg: C.ModelConfig):
+    """Per block application, its index among its group's blocks."""
+    seen: Dict[str, int] = collections.Counter()
+    out = []
+    for kind in block_kinds(cfg):
+        out.append(seen[_group(kind)])
+        seen[_group(kind)] += 1
+    return out
 
 
 # ------------------------------------------------------------- param spec --
 
-def _attn_spec(cfg: C.ModelConfig) -> Dict[str, Any]:
+def _attn_spec(cfg: C.ModelConfig, is_moe: bool) -> Dict[str, Any]:
     d, hd = cfg.d_model, cfg.hd
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
-    return {
+    s: Dict[str, Any] = {
         "ln1": P((d,), ("embed",), init="zeros"),
         "wq": P((d, nq, hd), ("embed", "heads", "head_dim")),
         "wk": P((d, nkv, hd), ("embed", "kv_heads", "head_dim")),
         "wv": P((d, nkv, hd), ("embed", "kv_heads", "head_dim")),
         "wo": P((nq, hd, d), ("heads", "head_dim", "embed")),
         "ln2": P((d,), ("embed",), init="zeros"),
-        "w_gate": P((d, cfg.d_ff), ("embed", "mlp")),
-        "w_up": P((d, cfg.d_ff), ("embed", "mlp")),
-        "w_down": P((cfg.d_ff, d), ("mlp", "embed")),
     }
+    if cfg.qkv_bias:
+        s["bq"] = P((nq, hd), ("heads", "head_dim"), init="zeros")
+        s["bk"] = P((nkv, hd), ("kv_heads", "head_dim"), init="zeros")
+        s["bv"] = P((nkv, hd), ("kv_heads", "head_dim"), init="zeros")
+    if is_moe:
+        E = cfg.n_experts
+        s["router"] = P((d, E), ("embed", None), scale=0.02)
+        s["w_gate"] = P((E, d, cfg.d_ff), ("experts", "exp_embed", "mlp"))
+        s["w_up"] = P((E, d, cfg.d_ff), ("experts", "exp_embed", "mlp"))
+        s["w_down"] = P((E, cfg.d_ff, d), ("experts", "mlp", "exp_embed"))
+    else:
+        s["w_gate"] = P((d, cfg.d_ff), ("embed", "mlp"))
+        s["w_up"] = P((d, cfg.d_ff), ("embed", "mlp"))
+        s["w_down"] = P((cfg.d_ff, d), ("mlp", "embed"))
+    return s
+
+
+def _block_spec(cfg: C.ModelConfig, kind: str):
+    if kind in (C.ATTN, C.MOE):
+        return _attn_spec(cfg, is_moe=kind == C.MOE)
+    if kind == C.SHARED_ATTN:
+        # the per-application norm is private; the weights are shared
+        return {"ln1": P((cfg.d_model,), ("embed",), init="zeros")}
+    if kind == C.MAMBA2:
+        return mamba2.param_spec(cfg)
+    if kind == C.MLSTM:
+        return xlstm.mlstm_spec(cfg)
+    if kind == C.SLSTM:
+        return xlstm.slstm_spec(cfg)
+    raise ValueError(kind)
 
 
 def param_spec(cfg: C.ModelConfig) -> Dict[str, Any]:
-    check_supported(cfg)
     d = cfg.d_model
-    spec: Dict[str, Any] = {
-        "embed": P((cfg.padded_vocab, d), ("vocab", "embed"), scale=0.02)
-    }
-    if not cfg.tie_embeddings:
+    spec: Dict[str, Any] = {}
+    if cfg.embed_inputs:
+        spec["embed"] = P((cfg.padded_vocab, d), ("vocab", "embed"),
+                          scale=0.02)
+    if not cfg.tie_embeddings or not cfg.embed_inputs:
         spec["lm_head"] = P((d, cfg.padded_vocab), ("embed", "vocab"))
     spec["final_norm"] = P((d,), ("embed",), init="zeros")
-    spec["layers"] = [_attn_spec(cfg) for _ in range(cfg.n_layers)]
+    kinds = block_kinds(cfg)
+    spec["layers"] = [_block_spec(cfg, kind) for kind in kinds]
+    if C.SHARED_ATTN in kinds:
+        spec["shared_attn"] = _attn_spec(cfg, is_moe=False)
     return spec
 
 
@@ -109,17 +162,37 @@ def cache_len(cfg: C.ModelConfig, max_len: int) -> int:
 
 
 def init_cache(cfg, batch, max_len, device="cuda"):
-    L, Kh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    n = collections.Counter(_group(k) for k in block_kinds(cfg))
+    Kh, hd = cfg.n_kv_heads, cfg.hd
     S = cache_len(cfg, max_len)
-    dt = cfg.compute_dtype
-    return {
-        "k": torch.zeros((L, batch, S, Kh, hd), dtype=dt, device=device),
-        "v": torch.zeros((L, batch, S, Kh, hd), dtype=dt, device=device),
-        "pos": torch.full((L, batch, S), -1, dtype=torch.int32,
-                          device=device),
-        "seg": torch.full((L, batch, S), -1, dtype=torch.int32,
-                          device=device),
-    }
+    dt, f32 = cfg.compute_dtype, torch.float32
+
+    def stack(group, shape, dtype, fill=0):
+        return torch.full((n[group],) + shape, fill, dtype=dtype,
+                          device=device)
+
+    cache = {}
+    if n["attn"]:
+        cache["k"] = stack("attn", (batch, S, Kh, hd), dt)
+        cache["v"] = stack("attn", (batch, S, Kh, hd), dt)
+        cache["pos"] = stack("attn", (batch, S), torch.int32, -1)
+        cache["seg"] = stack("attn", (batch, S), torch.int32, -1)
+    if n[C.MAMBA2]:
+        nh, shd, ds = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        cache["ssd"] = stack(C.MAMBA2, (batch, nh, shd, ds), f32)
+        cache["conv"] = stack(C.MAMBA2, (batch, cfg.conv_kernel - 1,
+                                         cfg.d_inner + 2 * ds), dt)
+    if n[C.MLSTM]:
+        nh = cfg.n_heads
+        dk = xlstm.PF_M * cfg.d_model // nh
+        cache["mlstm_C"] = stack(C.MLSTM, (batch, nh, dk, dk), f32)
+        cache["mlstm_n"] = stack(C.MLSTM, (batch, nh, dk), f32)
+    if n[C.SLSTM]:
+        nh = cfg.n_heads
+        for leaf in "cnhm":
+            cache["slstm_" + leaf] = stack(
+                C.SLSTM, (batch, nh, cfg.d_model // nh), f32)
+    return cache
 
 
 def init_paged_cache(cfg, num_blocks, block_size, kv_dtype: str = "bf16",
@@ -128,8 +201,12 @@ def init_paged_cache(cfg, num_blocks, block_size, kv_dtype: str = "bf16",
     slot-in-block) leading axes.  ``kv_dtype`` selects the block storage
     (kernels/quant.py): ``"bf16"`` keeps the compute dtype; ``"int8"`` /
     ``"fp8"`` store K/V quantized and add float32 ``k_scale``/``v_scale``
-    sidecars ``(L, num_blocks, block_size, Kh)``."""
-    check_supported(cfg)
+    sidecars ``(L_attn, num_blocks, block_size, Kh)``.  Attention-family
+    models without a window only, as in the reference."""
+    bad = set(block_kinds(cfg)) - set(ATTN_KINDS)
+    if bad:
+        raise ValueError(f"paged KV needs attention-only models; {cfg.name} "
+                         f"has recurrent-state blocks {sorted(bad)}")
     if cfg.sliding_window:
         raise ValueError("paged KV does not support sliding-window ring "
                          "buffers (the window tail lives in the dense "
@@ -147,8 +224,10 @@ def init_paged_cache(cfg, num_blocks, block_size, kv_dtype: str = "bf16",
 
 
 def layer_view(cache, layer: int):
-    """Per-layer views of a stacked cache dict (writes land in place)."""
-    return {name: t[layer] for name, t in cache.items()}
+    """Views of attention block ``layer``'s cache leaves (writes land in
+    place)."""
+    return {name: t[layer] for name, t in cache.items()
+            if name in ATTN_LEAVES}
 
 
 def masked_write(dst, dst_idx, src):
@@ -171,19 +250,24 @@ def write_index(write_idx, S: int):
 
 # ----------------------------------------------------------------- blocks --
 
-def _project_qkv(p, h, cfg, positions):
+def project_qkv(p, h, cfg, positions):
+    """An attention block's q (B, S, H, hd) and k, v (B, S, Kh, hd) from
+    its normed input h (B, S, d): projections, QKV bias, RoPE."""
     B, S, d = h.shape
     q = (h @ p["wq"].reshape(d, -1)).reshape(B, S, cfg.n_heads, cfg.hd)
     k = (h @ p["wk"].reshape(d, -1)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
     v = (h @ p["wv"].reshape(d, -1)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def _attn_block(p, x, cfg, opts, *, positions, segments, kv_cache, widx,
-                attend_cache=True, attn_override=None):
-    """One pre-norm attention + SwiGLU block.  Returns x_out.
+                is_moe, attend_cache=True, attn_override=None):
+    """One pre-norm attention + SwiGLU (or MoE) block.  Returns (x_out,
+    (moe_aux, moe_z)).
 
     kv_cache None              -> attend in-sequence, no cache
     kv_cache, attend_cache=F   -> prefill: write K/V into the cache grid but
@@ -195,7 +279,7 @@ def _attn_block(p, x, cfg, opts, *, positions, segments, kv_cache, widx,
     """
     B, S, d = x.shape
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _project_qkv(p, h, cfg, positions)
+    q, k, v = project_qkv(p, h, cfg, positions)
     segs = (segments if segments is not None
             else torch.zeros((B, S), dtype=torch.int32, device=x.device))
     if attn_override is not None:
@@ -225,41 +309,112 @@ def _attn_block(p, x, cfg, opts, *, positions, segments, kv_cache, widx,
     o = o.reshape(B, S, nq * hd) @ p["wo"].reshape(nq * hd, d)
     x = x + o
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    if not is_moe:
+        return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), (0.0, 0.0)
+    out, aux, z = moe.moe_ffn(h.reshape(B * S, d), p["router"], p["w_gate"],
+                              p["w_up"], p["w_down"], top_k=cfg.top_k,
+                              cf=cfg.capacity_factor)
+    return x + out.reshape(B, S, d), (aux, z)
+
+
+def _recurrent_block(kind, p, x, cfg, opts, cache, slot):
+    """A Mamba2 / mLSTM / sLSTM block.  ``cache`` None runs from a zero
+    state; otherwise block ``slot``'s state is read and updated in
+    place."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    if kind == C.MAMBA2:
+        leaves = ("ssd", "conv")
+        st = None if cache is None else mamba2.Mamba2State(
+            *(cache[n][slot] for n in leaves))
+        out, st = mamba2.forward(p, h, cfg, state=st, chunk=opts.ssd_chunk)
+    elif kind == C.MLSTM:
+        leaves = ("mlstm_C", "mlstm_n")
+        st = None if cache is None else xlstm.MLstmState(
+            *(cache[n][slot] for n in leaves))
+        out, st = xlstm.mlstm_forward(p, h, cfg, state=st,
+                                      chunk=opts.ssd_chunk)
+    elif kind == C.SLSTM:
+        leaves = tuple("slstm_" + n for n in "cnhm")
+        st = None if cache is None else xlstm.SLstmState(
+            *(cache[n][slot] for n in leaves))
+        out, st = xlstm.slstm_forward(p, h, cfg, state=st)
+    else:
+        raise ValueError(kind)
+    if cache is not None:
+        for n, t in zip(leaves, st):
+            cache[n][slot].copy_(t)
+    return x + out
 
 
 def _run_stack(params, x, cfg, opts, *, positions, segments, cache, widx,
                attend_cache=True, attn_override=None):
-    for layer, p in enumerate(params["layers"]):
-        kv = None if cache is None else layer_view(cache, layer)
-        x = _attn_block(p, x, cfg, opts, positions=positions,
-                        segments=segments, kv_cache=kv, widx=widx,
-                        attend_cache=attend_cache,
-                        attn_override=attn_override)
-    return x
+    """Every block in order.  Returns (x, (moe_aux, moe_z)) summed over the
+    MoE blocks."""
+    shared = params.get("shared_attn")
+    am = az = 0.0
+    for kind, slot, p in zip(block_kinds(cfg), cache_slots(cfg),
+                             params["layers"]):
+        if kind not in ATTN_KINDS:
+            x = _recurrent_block(kind, p, x, cfg, opts, cache, slot)
+            continue
+        if kind == C.SHARED_ATTN:
+            p = dict(shared, ln1=p["ln1"])  # private per-application norm
+        kv = None if cache is None else layer_view(cache, slot)
+        x, (a, z) = _attn_block(p, x, cfg, opts, positions=positions,
+                                segments=segments, kv_cache=kv, widx=widx,
+                                is_moe=kind == C.MOE,
+                                attend_cache=attend_cache,
+                                attn_override=attn_override)
+        am, az = am + a, az + z
+    return x, (am, az)
 
 
 # ------------------------------------------------------------ entrypoints --
 
-def _inputs_to_x(cfg, params, tokens):
-    return embed(tokens, params["embed"]).to(cfg.compute_dtype)
+def _inputs_to_x(cfg, params, tokens, inputs_embeds=None,
+                 prefix_embeds=None):
+    if cfg.embed_inputs:
+        x = embed(tokens, params["embed"]).to(cfg.compute_dtype)
+    else:
+        x = inputs_embeds.to(cfg.compute_dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cfg.compute_dtype), x], dim=1)
+    return x
 
 
 def _logits(cfg, params, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and cfg.embed_inputs:
         return x @ params["embed"].T
     return x @ params["lm_head"]
 
 
-def prefill(params, cfg, *, tokens, lengths=None, max_len=None,
-            segments=None, positions=None, opts: Opts = Opts()):
+def apply(params, cfg, *, tokens=None, inputs_embeds=None, prefix_embeds=None,
+          positions=None, segments=None, opts: Opts = Opts()):
+    """Full-sequence forward.  Returns (logits, (moe_aux, moe_z))."""
+    x = _inputs_to_x(cfg, params, tokens, inputs_embeds, prefix_embeds)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+    x, (am, az) = _run_stack(params, x, cfg, opts, positions=positions,
+                             segments=segments, cache=None, widx=None)
+    aux = tuple(torch.as_tensor(a, dtype=torch.float32, device=x.device)
+                for a in (am, az))
+    return _logits(cfg, params, x), aux
+
+
+def prefill(params, cfg, *, tokens=None, inputs_embeds=None,
+            prefix_embeds=None, lengths=None, max_len=None, segments=None,
+            positions=None, last_logits_only=False, opts: Opts = Opts()):
     """Process prompts, build a dense cache.  Returns (logits, cache).
 
     lengths: (B,) valid prompt lengths (tokens beyond are padding).
     max_len: cache capacity (defaults to the prompt length).
+    last_logits_only: logits of each row's last valid position only,
+    (B, 1, V).
     """
-    x = _inputs_to_x(cfg, params, tokens)
+    x = _inputs_to_x(cfg, params, tokens, inputs_embeds, prefix_embeds)
     B, S, _ = x.shape
     dev = x.device
     if lengths is None:
@@ -279,33 +434,37 @@ def prefill(params, cfg, *, tokens, lengths=None, max_len=None,
         slots = torch.where(positions >= S - Sc, positions % Sc, Sc)
     else:
         slots = torch.clamp(positions, max=Sc - 1)
-    widx = write_index(slots, Sc)
-    x = _run_stack(params, x, cfg, opts, positions=positions,
-                   segments=segments, cache=cache, widx=widx,
-                   attend_cache=False)
+    widx = write_index(slots, Sc) if "k" in cache else None
+    x, _ = _run_stack(params, x, cfg, opts, positions=positions,
+                      segments=segments, cache=cache, widx=widx,
+                      attend_cache=False)
+    if last_logits_only:
+        idx = torch.clamp(lengths.long() - 1, min=0)
+        x = x[torch.arange(B, device=dev), idx][:, None]
     return _logits(cfg, params, x), cache
 
 
-def decode_step(params, cfg, cache, *, tokens, lengths, segments=None,
-                attn_override=None, opts: Opts = Opts()):
+def decode_step(params, cfg, cache, *, tokens=None, inputs_embeds=None,
+                lengths=None, segments=None, attn_override=None,
+                opts: Opts = Opts()):
     """One generation step: tokens (B, T), T new tokens per row at
     positions ``lengths[b] + t``.  Returns (logits, cache).
     ``attn_override`` replaces attention + KV write-back per layer — the
     paged-KV path (serving/paged.py) routes block tables through it."""
-    x = _inputs_to_x(cfg, params, tokens)
+    x = _inputs_to_x(cfg, params, tokens, inputs_embeds)
     B, T, _ = x.shape
     positions = (lengths[:, None].to(torch.int32)
                  + torch.arange(T, dtype=torch.int32, device=x.device)[None])
     if segments is None:
         segments = torch.zeros((B, T), dtype=torch.int32, device=x.device)
     widx = None
-    if attn_override is None:
+    if attn_override is None and "k" in cache:
         Sc = cache["k"].shape[2]
         widx = write_index(positions % Sc if cfg.sliding_window else positions,
                            Sc)
-    x = _run_stack(params, x, cfg, opts, positions=positions,
-                   segments=segments, cache=cache, widx=widx,
-                   attn_override=attn_override)
+    x, _ = _run_stack(params, x, cfg, opts, positions=positions,
+                      segments=segments, cache=cache, widx=widx,
+                      attn_override=attn_override)
     return _logits(cfg, params, x), cache
 
 
@@ -315,7 +474,7 @@ def verify_step_packed(params, cfg, cache, *, tokens, positions, segments,
     one (1, Tq) row; attention and cache write-back are handled by
     ``attn_override``.  Returns (logits, cache)."""
     x = _inputs_to_x(cfg, params, tokens)
-    x = _run_stack(params, x, cfg, opts, positions=positions,
-                   segments=segments, cache=cache, widx=None,
-                   attn_override=attn_override)
+    x, _ = _run_stack(params, x, cfg, opts, positions=positions,
+                      segments=segments, cache=cache, widx=None,
+                      attn_override=attn_override)
     return _logits(cfg, params, x), cache

@@ -36,8 +36,9 @@ packed verify runs ``kernels.ops.verify_attention`` once per LLM layer
 and catch-up decodes plain PyTorch over the grid, as the reference's XLA
 path does.  Tree speculation, quantized KV and the fused kernels need the
 paged layout; under the dense one each falls back with a warning, as in
-the reference.  Models with recurrent state raise ``ValueError`` (ROADMAP
-Queue 1, models off the main path).
+the reference.  MoE models serve like dense ones (paged unless they have a
+window).  Models with recurrent state raise ``ValueError``: the
+reference's engine does not serve them soundly (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -184,8 +185,11 @@ class SpinEngine:
         for b in [llm] + self.ssms:
             if b.has_recurrent_state:
                 raise ValueError(
-                    f"{b.cfg.name}: models with recurrent state wait in "
-                    f"ROADMAP Queue 1 (models off the main path)")
+                    f"{b.cfg.name}: the engine does not serve models with "
+                    f"recurrent state: the reference's engine has no "
+                    f"rollback of that state over rejected drafts (packed "
+                    f"verify raises, padded verify is not lossless); see "
+                    f"ROADMAP Queue 3")
         if ecfg.spec_shape not in ("linear", "tree"):
             raise ValueError(f"unknown spec_shape {ecfg.spec_shape!r}")
         if ecfg.spec_branch < 1:

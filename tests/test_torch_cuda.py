@@ -10,6 +10,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import build, cases, paged_attention
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.fused_decode import (fused_paged_decode,
                                               fused_paged_decode_plain)
 from repro_torch.kernels.fused_verify import (fused_paged_verify,
@@ -97,6 +99,17 @@ def test_paged_verify_attention_matches_plain(gen, kv, tree, G):
     _check(paged_attention.paged_verify_attention,
            paged_attention.paged_verify_attention_plain,
            "paged_verify_attention", a)
+
+
+@pytest.mark.parametrize("kv,S,H,Kh,D,window", [
+    ("bf16", 200, 8, 8, 64, 0), ("f32", 200, 12, 2, 96, 0),
+    ("bf16", 333, 14, 2, 128, 100), ("f32", 77, 4, 4, 128, 32),
+    ("bf16", 130, 48, 8, 128, 64)])
+def test_flash_attention_matches_plain(gen, kv, S, H, Kh, D, window):
+    """Causal and windowed prefill, G = 1, 6 and 7, S not a multiple of
+    the tile."""
+    a = cases.flash_inputs(gen, 2, S, H, Kh, D, kv, window)
+    _check(flash_attention, flash_attention_plain, "flash_attention", a)
 
 
 def test_dense_engine_launches_verify_attention(gen):
