@@ -8,14 +8,16 @@ script then exits non-zero without its last line.  Phases:
 
 1. the card (name, power limit, torch and CUDA versions);
 2. the build of every CUDA kernel under src/repro_torch/kernels/csrc (one
-   nvcc per source, in parallel);
+   nvcc per source, in parallel), with ptxas' registers and spills;
 3. kernel checks: each kernel against its plain PyTorch version on the
    card, at the head geometries of the serving path (LLaMA-7B verify
    H=Kh=32 D=128; SSM decode H=12 D=64 and H=16 D=96), with bf16, int8, fp8
    and float32 pools, linear and tree masks, and edge cases (idle rows,
    padding queries, trailing padding entries, ancestor bit 31; for the
-   dense kernels interleaved packed segments, padding cells, rows of
-   length 0, cache lengths not a multiple of 32);
+   dense kernels interleaved packed segments with contexts up to 230
+   tokens, ~2000-slot buffers in the dense plan's 128-cell rows (split-KV
+   over 16 runs), padding cells, rows of length 0, cache lengths not a
+   multiple of 32);
 4. the paged main path: the port's SpinEngine serving the mix workload with
    LLaMA-7B (32 layers, full width) and the SSMs LLaMA-68M/265M/616M at
    full width, random bf16 weights, paged bf16 KV, fused kernels on.  An
@@ -62,12 +64,13 @@ script then exits non-zero without its last line.  Phases:
    inputs;
 11. losslessness of mixtral-8x22b in float32 (1 layer, dense fallback,
    unit-scale attention), against plain greedy decoding as in phase 6;
-12. ``flash_attention``: check shapes (bf16 and float32, D 64/96/128, GQA
-   groups 1/6/7, with and without a window, S not a multiple of the
-   tile) against its plain version; then ``ops.flash_attention`` on layer
-   0 of mixtral (S = 6144, window 4096) and of LLaMA-7B (S = 2048, phase
-   4's model), launch counts as in phase 4, each also held against
-   ``layers.attention`` and timed;
+12. ``flash_attention``: check shapes (bf16 on the tensor-core kernel,
+   float32 on the CUDA-core one; D 64/96/128, GQA groups 1/6/7/8, B 1 and
+   2, windows of 7 and 32 keys and wider, S below one 64-key tile and not
+   a multiple of it) against its plain version; then
+   ``ops.flash_attention`` on layer 0 of mixtral (S = 6144, window 4096)
+   and of LLaMA-7B (S = 2048, phase 4's model), launch counts as in phase
+   4, each also held against ``layers.attention`` and timed;
 13. timing of each kernel on the largest call its path made (its own
    inputs, kept in phases 4, 5, 8 and 12): kernel, plain version and one
    PyTorch library call (scaled_dot_product_attention, a yardstick the
@@ -146,6 +149,8 @@ SOURCES = {
 # (dbrx) that one card holds beside the SSMs, in bf16
 MIXTRAL_LAYERS, DBRX_LAYERS = 4, 2
 PAGED = [n for n, (_, _, path) in SOURCES.items() if path == "paged"]
+# sources whose every kernel entry chip_smoke's build log lists
+REDESIGNED = ("flash_attention", "verify_attention")
 
 
 def log(*a):
@@ -514,6 +519,16 @@ def phase_kernel_checks(timer, report):
                      f"{tag} {kv} {'tree' if tree else 'linear'}",
                      cases.dense_verify_inputs(gen, lens7b, 4, H, Kh, D, kv,
                                                tree)))
+    # split-KV over many tiles: ~2000 slots in the dense plan's 128-cell
+    # rows, mostly padding
+    plan_lens = [20, 35, 230, 12, 100, 77, 5, 150, 60, 210, 31, 8]
+    for kv, tree in (("bf16", False), ("f32", False), ("bf16", True),
+                     ("f32", True)):
+        todo.append(("verify_attention",
+                     f"llama-7b plan rows {kv} "
+                     f"{'tree' if tree else 'linear'}",
+                     cases.plan_verify_inputs(gen, plan_lens, 4, 32, 32, 128,
+                                              kv, tree)))
     dense_lens = [0, 37, 250, 131, 1, 96]     # S = 250: not a multiple of 32
     for kv, H, Kh, D, tag in (("bf16", 32, 32, 128, "llama-7b"),
                               ("f32", 32, 32, 128, "llama-7b"),
@@ -997,17 +1012,23 @@ def phase_flash(report, timer, path_inputs):
     function for one unpadded segment)."""
     gen = torch.Generator().manual_seed(13)
     todo = []
-    for kv, S, H, Kh, D, window, tag in (
-            ("bf16", 1000, 14, 2, 64, 0, "qwen2-0.5b G 7"),
-            ("f32", 777, 14, 2, 64, 256, "qwen2-0.5b G 7"),
-            ("bf16", 1500, 16, 16, 96, 0, "llama-616m"),
-            ("f32", 600, 12, 2, 96, 100, "D 96 G 6"),
-            ("bf16", 2049, 48, 8, 128, 512, "mixtral G 6"),
-            ("f32", 1000, 32, 32, 128, 0, "llama-7b"),
-            ("bf16", 333, 56, 8, 128, 0, "G 7 D 128")):
+    # bf16 runs on the tensor cores, float32 on the CUDA cores
+    for kv, B, S, H, Kh, D, window, tag in (
+            ("bf16", 1, 1000, 14, 2, 64, 0, "qwen2-0.5b G 7"),
+            ("f32", 1, 777, 14, 2, 64, 256, "qwen2-0.5b G 7"),
+            ("bf16", 1, 1500, 16, 16, 96, 0, "llama-616m"),
+            ("f32", 1, 600, 12, 2, 96, 100, "D 96 G 6"),
+            ("bf16", 1, 2049, 48, 8, 128, 512, "mixtral G 6"),
+            ("f32", 1, 1000, 32, 32, 128, 0, "llama-7b"),
+            ("bf16", 1, 333, 56, 8, 128, 0, "G 7 D 128"),
+            ("bf16", 2, 45, 6, 1, 64, 7, "G 6 D 64 S < 64"),
+            ("bf16", 2, 130, 64, 8, 96, 32, "G 8 D 96"),
+            ("bf16", 2, 257, 32, 32, 128, 7, "G 1 D 128"),
+            ("bf16", 2, 63, 7, 1, 96, 0, "G 7 D 96 S < 64"),
+            ("bf16", 2, 500, 64, 8, 64, 0, "G 8 D 64")):
         todo.append(("flash_attention",
-                     f"{tag} S={S} window={window} {kv}",
-                     cases.flash_inputs(gen, 1, S, H, Kh, D, kv, window)))
+                     f"{tag} B={B} S={S} window={window} {kv}",
+                     cases.flash_inputs(gen, B, S, H, Kh, D, kv, window)))
     run_checks(todo, timer, report)
 
     build.LAUNCHES.clear()
@@ -1109,11 +1130,19 @@ def main():
     logs = build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s wall for "
         + ", ".join(f"{n} {r['seconds']:.1f} s" for n, r in logs.items()))
-    for n, r in logs.items():
-        notes = [ln.strip() for ln in r["ptxas"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-        log(f"  ptxas {n}: " + " | ".join(notes[:4]))
     report["build"] = {n: r["seconds"] for n, r in logs.items()}
+    for n, r in logs.items():
+        entries = build.ptxas_entries(r["ptxas"])
+        report["build_ptxas_" + n] = entries
+        regs = [e["registers"] for e in entries] or [0]
+        log(f"  ptxas {n}: {len(entries)} entries, registers "
+            f"{min(regs)}-{max(regs)}, spill bytes "
+            f"{sum(e['spill_bytes'] for e in entries)}")
+        if n in REDESIGNED:
+            for e in entries:
+                log(f"    {e['entry']}: {e['registers']} registers, "
+                    f"{e['spill_bytes']} spill bytes, {e['static_smem']} "
+                    f"bytes static smem")
 
     timer = Timer()
 

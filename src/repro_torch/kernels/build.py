@@ -20,6 +20,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -104,6 +105,32 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     return BUILD_LOG
 
 
+def ptxas_entries(text: str) -> list:
+    """Per kernel entry in ``nvcc -Xptxas -v`` output: its short name (the
+    function name and the start of its template arguments, as mangled),
+    registers, spill bytes (stores + loads) and static shared memory."""
+    out, name, spill = [], None, 0
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            short = re.search(r"\d+([A-Za-z_]+_kernel)(\w{0,24})", name)
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(dict(
+                entry="".join(short.groups()) if short else name[:48],
+                registers=int(m.group(1)), spill_bytes=spill,
+                static_smem=int(smem.group(1)) if smem else 0))
+            name = None
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built first if needed."""
     lib = _libs.get(name)
@@ -129,7 +156,7 @@ def query_tile(tokens: int, group: int, other_ctas: int, device) -> int:
     heads each) while the grid still has about two CTAs per SM; at short
     contexts the kernels are latency-bound, so more, smaller CTAs finish
     sooner.  ``other_ctas`` is the grid's size without the query axis."""
-    sms = _sm_count(device)
+    sms = sm_count(device)
     fill = (tokens * other_ctas) // (2 * sms)
     return max(1, min(MAX_ROWS // group, fill))
 
@@ -137,7 +164,7 @@ def query_tile(tokens: int, group: int, other_ctas: int, device) -> int:
 _SMS: Dict[int, int] = {}
 
 
-def _sm_count(device) -> int:
+def sm_count(device) -> int:
     idx = device.index if device.index is not None else 0
     if idx not in _SMS:
         _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count

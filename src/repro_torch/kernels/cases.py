@@ -3,21 +3,23 @@
 path (fragmented block placement, idle rows, bucket-padding queries,
 trailing padding entries, rolled-back slots, tree node tags and 32-bit
 ancestor masks; for the dense kernels interleaved packed fragments,
-padding cells, zero-length rows; for prefill attention ragged lengths and
-windows) for checking a kernel against its plain version.  Test
-support only: ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` use it, no
-serving code imports it, and it is not part of the package's API.  ``kv``
-names the pool
-storage: "bf16", "f32" (the query takes the same float type), "int8" or
-"fp8" (bf16 queries, float32 scale sidecars).
+padding cells, the dense plan's 128-cell rows, zero-length rows; for
+prefill attention ragged lengths and windows) for checking a kernel
+against its plain version.  Test support only: ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` use it, no serving code imports it, and it
+is not part of the package's API.  ``kv`` names the pool storage:
+"bf16", "f32" (the query takes the same float type), "int8" or "fp8"
+(bf16 queries, float32 scale sidecars).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from repro_torch.core.decompose import plan_decomposition
 from repro_torch.kernels import quant
 
 
@@ -149,6 +151,41 @@ def dense_verify_inputs(gen, lens, W, H, Kh, D, kv, tree, pad_cells=12,
     kv_seg, kv_pos, kv_node = (list(c) for c in zip(*cells))
     q_seg = [i for i in range(len(lens)) for _ in range(W + 1)] + [-1, -1]
     q_pos = [L + d for L in lens for d in range(W + 1)] + [-1, 3]
+    Tq, Tkv = len(q_seg), len(kv_seg)
+    i32 = lambda t: torch.as_tensor(t, dtype=torch.int32)  # noqa: E731
+    out = dict(q=_floats(gen, (Tq, H, D), kv),
+               k=_floats(gen, (Tkv, Kh, D), kv),
+               v=_floats(gen, (Tkv, Kh, D), kv),
+               q_seg=i32(q_seg), q_pos=i32(q_pos),
+               kv_seg=i32(kv_seg), kv_pos=i32(kv_pos),
+               q_anc=(i32(torch.randint(-2**31, 2**31 - 1, (Tq,),
+                                        generator=gen)) if tree else None),
+               kv_node=i32(kv_node) if tree else None)
+    return {n: None if t is None else t.to(device).contiguous()
+            for n, t in out.items()}
+
+
+def plan_verify_inputs(gen, lens, W, H, Kh, D, kv, tree, device="cuda"):
+    """Flat buffer for ``verify_attention`` laid out as the dense layout's
+    packed verify lays it: ``core.decompose.plan_decomposition`` packs each
+    request's context into rows of 128-cell multiples (the rest of a row
+    is padding, seg -1), then every request's W + 1 new slots follow.
+    Queries: W + 1 per request at positions L .. L + W.  Tree cases tag the
+    new slots with node ids in [-2, 31] and give every query a random
+    32-bit ancestor mask.  ``kv``: "bf16" or "f32"."""
+    plan = plan_decomposition(lens)
+    kv_seg = np.where(plan.valid, plan.gather_b, -1).tolist()
+    kv_pos = np.where(plan.valid, plan.gather_s, -1).tolist()
+    kv_node = [-1] * len(kv_seg)
+    tags = torch.randint(-2, 32, (len(lens) * (W + 1),), generator=gen)
+    q_seg, q_pos = [], []
+    for i, L in enumerate(lens):
+        for d in range(W + 1):
+            kv_seg.append(i)
+            kv_pos.append(L + d)
+            kv_node.append(int(tags[i * (W + 1) + d]))
+            q_seg.append(i)
+            q_pos.append(L + d)
     Tq, Tkv = len(q_seg), len(kv_seg)
     i32 = lambda t: torch.as_tensor(t, dtype=torch.int32)  # noqa: E731
     out = dict(q=_floats(gen, (Tq, H, D), kv),

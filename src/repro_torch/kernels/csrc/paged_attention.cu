@@ -27,8 +27,9 @@
 //   grid over (query tile, live block): one CTA per (query tile, kv head,
 //   block entry) scores the tile against that one block and writes an
 //   unnormalised partial (running max m, sum l, accumulator) to scratch; a
-//   second kernel, one CTA per (query token, head), merges the partials
-//   of every entry with the usual rescaling.  An entry whose owner is a
+//   second kernel, one warp per (query token, head), merges the partials
+//   of every entry with the usual rescaling (merge_partials_kernel,
+//   paged_common.cuh).  An entry whose owner is a
 //   padding entry (-1) or lies outside the tile's [min q_seg, max q_seg]
 //   writes l = 0 and reads no K/V byte; the merge skips it.  So the work
 //   spreads over M x more CTAs than fused_verify.cu at the price of the
@@ -210,40 +211,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One CTA per (query token, head), one thread per output dim: merge the M
-// partials (entries with l = 0 attended nothing and are skipped).
-template <typename QT>
-__global__ void __launch_bounds__(kMaxD)
-    paged_verify_combine_kernel(const float* __restrict__ pm,
-                                const float* __restrict__ pl,
-                                const float* __restrict__ pacc,
-                                QT* __restrict__ out, int Tq, int H, int D,
-                                int M) {
-  const int t = blockIdx.x;
-  const int head = blockIdx.y;
-  const int d = threadIdx.x;
-  const long long stride = static_cast<long long>(Tq) * H;
-  const long long base = static_cast<long long>(t) * H + head;
-  float mx = -CUDART_INF_F;
-  for (int mi = 0; mi < M; ++mi) {
-    const long long o = mi * stride + base;
-    if (pl[o] > 0.f) mx = fmaxf(mx, pm[o]);
-  }
-  float lsum = 0.f, a = 0.f;
-  for (int mi = 0; mi < M; ++mi) {
-    const long long o = mi * stride + base;
-    const float li = pl[o];
-    if (li > 0.f) {
-      const float w = expf(pm[o] - mx);
-      lsum = fmaf(li, w, lsum);
-      if (d < D) a = fmaf(pacc[o * D + d], w, a);
-    }
-  }
-  if (d < D)
-    store_f32(lsum > 0.f ? a / fmaxf(lsum, 1e-30f) : 0.f,
-              out + base * D + d);
-}
-
 // ------------------------------------------------------------ dispatch --
 
 template <typename QT, typename KT>
@@ -286,8 +253,7 @@ static void launch_verify(const void* q, const void* kp, const void* vp,
           <<<grid, kThreads, smem, stream>>>(SPIN_PV_ARGS);
 #undef SPIN_PV_ARGS
   }
-  paged_verify_combine_kernel<QT><<<dim3(Tq, H), kMaxD, 0, stream>>>(
-      pm, pl, pacc, static_cast<QT*>(out), Tq, H, D, M);
+  merge_partials(pm, pl, pacc, static_cast<QT*>(out), Tq, H, D, M, stream);
 }
 
 #define SPIN_KV_SWITCH(QT, CALL)                                  \

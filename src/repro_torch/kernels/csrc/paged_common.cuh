@@ -1,7 +1,8 @@
 // Shared pieces of the attention kernels (fused_verify.cu, fused_decode.cu,
 // verify_attention.cu, decode_attention.cu, paged_attention.cu): element
 // conversions, warp reductions, the shared-memory layout, the dequantizing
-// K/V tile loader and the per-tile online-softmax step.
+// K/V tile loader, the per-tile online-softmax step and the merge of
+// split-KV partials.
 //
 // Work split.  A CTA owns R <= 16 query rows of one kv head (the GQA
 // group's heads of a few query tokens; the wrapper picks the tile so the
@@ -111,9 +112,13 @@ __device__ __forceinline__ Smem carve_smem(float* base, int rows, int D) {
 // Cooperative load of slots [s0, s0 + n) of physical block `blk`, kv head
 // `h`, into shared memory (K/V only; the caller fills seg/pos/node).  A
 // flat (slots, Kh, D) buffer is the case blk = 0; a dense (B, S, Kh, D)
-// cache row b is blk = b, bs = S.  Each
-// thread issues kUnroll K and V loads before it stores any of them, so a
-// tile costs about one memory latency instead of one per element.
+// cache row b is blk = b, bs = S.  K and V are read in their stored dtype
+// as 16-byte chunks (4 float32, 8 bf16, 16 int8/fp8 values) whenever a
+// slot's D values fill whole chunks and both buffers are 16-byte aligned,
+// else element by element; each thread issues all its chunks (or kUnroll
+// elements) of K and of V before it converts (dequantizing with the
+// per-(slot, head) scale) and stores any of them, so a tile costs about one
+// memory latency.
 constexpr int kUnroll = 8;
 
 template <typename KT>
@@ -122,6 +127,58 @@ __device__ __forceinline__ void load_kv_tile(const Smem& sm, const KT* kp,
                                              const float* vs, long long blk,
                                              int s0, int n, int bs, int Kh,
                                              int h, int D) {
+  constexpr int E = 16 / sizeof(KT);  // values per 16-byte chunk
+  const bool vec = D % E == 0 &&
+                   ((reinterpret_cast<uintptr_t>(kp) |
+                     reinterpret_cast<uintptr_t>(vp)) & 15) == 0;
+  if (vec) {
+    // chunks a thread holds per round: one round for a full tile at D 128
+    constexpr int U = 2 * sizeof(KT);
+    const int C = D / E;              // chunks per slot
+    const int total = n * C;
+    for (int base = threadIdx.x; base < total; base += kThreads * U) {
+      uint4 kc[U], vc[U];
+      float ksc[U], vsc[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = base + u * kThreads;
+        if (e < total) {
+          const int j = e / C;
+          const long long slot = blk * bs + s0 + j;
+          const long long src = (slot * Kh + h) * D + (e - j * C) * E;
+          kc[u] = *reinterpret_cast<const uint4*>(kp + src);
+          vc[u] = *reinterpret_cast<const uint4*>(vp + src);
+          if (ks != nullptr) {
+            ksc[u] = ks[slot * Kh + h];
+            vsc[u] = vs[slot * Kh + h];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = base + u * kThreads;
+        if (e < total) {
+          const int j = e / C;
+          const int d0 = (e - j * C) * E;
+          const KT* kx = reinterpret_cast<const KT*>(&kc[u]);
+          const KT* vx = reinterpret_cast<const KT*>(&vc[u]);
+          float* kd = sm.k + j * (D + 1) + d0;
+          float* vd = sm.v + j * D + d0;
+#pragma unroll
+          for (int i = 0; i < E; ++i) {
+            float a = to_f32(kx[i]), b = to_f32(vx[i]);
+            if (ks != nullptr) {
+              a *= ksc[u];
+              b *= vsc[u];
+            }
+            kd[i] = a;
+            vd[i] = b;
+          }
+        }
+      }
+    }
+    return;
+  }
   const int total = n * D;
   for (int base = threadIdx.x; base < total; base += kThreads * kUnroll) {
     float kv[kUnroll], vv[kUnroll];
@@ -150,6 +207,57 @@ __device__ __forceinline__ void load_kv_tile(const Smem& sm, const KT* kp,
         sm.v[j * D + d] = vv[u];
       }
     }
+  }
+}
+
+// The queries of a tile into shared memory, float32, scaled: row r is
+// token t0 + r / G, head h G + r % G of a (tokens, H, D) array.  16-byte
+// chunks when a row fills whole chunks and q is 16-byte aligned (every
+// chunk a thread handles is requested before any is stored), else element
+// by element.
+template <typename QT>
+__device__ __forceinline__ void load_q_rows(float* sq, const QT* q, int t0,
+                                            int rows, int G, int H, int h,
+                                            int D, float scale) {
+  constexpr int E = 16 / sizeof(QT);
+  if (D % E == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0) {
+    // chunks a thread holds per round: one round for 16 rows at D 128
+    constexpr int U = sizeof(QT);
+    const int C = D / E;
+    const int total = rows * C;
+    for (int base = threadIdx.x; base < total; base += kThreads * U) {
+      uint4 c[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = base + u * kThreads;
+        if (e < total) {
+          const int r = e / C;
+          const long long row =
+              static_cast<long long>(t0 + r / G) * H + h * G + r % G;
+          c[u] = *reinterpret_cast<const uint4*>(q + row * D +
+                                                 (e - r * C) * E);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = base + u * kThreads;
+        if (e < total) {
+          const int r = e / C;
+          const QT* x = reinterpret_cast<const QT*>(&c[u]);
+          float* dst = sq + r * D + (e - r * C) * E;
+#pragma unroll
+          for (int i = 0; i < E; ++i) dst[i] = to_f32(x[i]) * scale;
+        }
+      }
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < rows * D; e += kThreads) {
+    const int r = e / D;
+    const int d = e - r * D;
+    const long long row =
+        static_cast<long long>(t0 + r / G) * H + h * G + r % G;
+    sq[e] = to_f32(q[row * D + d]) * scale;
   }
 }
 
@@ -202,6 +310,7 @@ __device__ __forceinline__ void attend_tile(
       l[rr] = l[rr] * corr + warp_sum(p);
 #pragma unroll
       for (int i = 0; i < kDimPerLane; ++i) acc[rr][i] *= corr;
+#pragma unroll 4
       for (int j = 0; j < n; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
         const float* vr = sm.v + j * D;
@@ -227,6 +336,77 @@ __device__ __forceinline__ void store_row(QT* out_row, int D, float l,
     const int d = lane + 32 * i;
     if (d < D) store_f32(l > 0.f ? acc[i] / denom : 0.f, out_row + d);
   }
+}
+
+// Merge of split-KV partials (paged_attention.cu's paged_verify_attention,
+// verify_attention.cu): one warp per (query token, head), lane i reading
+// partial c0 + i of each chunk of 32, so a chunk's (m, l) cost one memory
+// round trip.  Partial i of row (t, head) is pm/pl[i * Tq * H + t * H +
+// head] and pacc[(...) * D + d], all float32: an unnormalised running max
+// m, sum l and accumulator.  Partials with l = 0 attended nothing and are
+// skipped (their pacc is never read); the others are rescaled to the
+// running max of the live ones and summed, lane holding dims lane + 32 i.
+// Zeros where no partial attended anything.  Launch with kThreads threads
+// and ceil(Tq * H / kWarps) CTAs.
+template <typename QT>
+__global__ void __launch_bounds__(kThreads)
+    merge_partials_kernel(const float* __restrict__ pm,
+                          const float* __restrict__ pl,
+                          const float* __restrict__ pacc,
+                          QT* __restrict__ out, int Tq, int H, int D, int M) {
+  const long long stride = static_cast<long long>(Tq) * H;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= stride) return;         // warp-uniform
+  const int lane = threadIdx.x & 31;
+  float m_run = -CUDART_INF_F, l_run = 0.f, acc[kDimPerLane];
+#pragma unroll
+  for (int i = 0; i < kDimPerLane; ++i) acc[i] = 0.f;
+  for (int c0 = 0; c0 < M; c0 += 32) {
+    float mi = -CUDART_INF_F, li = 0.f;
+    if (c0 + lane < M) {
+      li = pl[(c0 + lane) * stride + row];
+      mi = pm[(c0 + lane) * stride + row];
+    }
+    const bool live = li > 0.f;
+    const float m_new = fmaxf(m_run, warp_max(live ? mi : -CUDART_INF_F));
+    if (m_new == -CUDART_INF_F) continue;  // nothing attended so far
+    const float keep = m_run > -CUDART_INF_F ? expf(m_run - m_new) : 0.f;
+    const float w = live ? expf(mi - m_new) : 0.f;
+    l_run = l_run * keep + warp_sum(li * w);
+#pragma unroll
+    for (int i = 0; i < kDimPerLane; ++i) acc[i] *= keep;
+    for (unsigned todo = __ballot_sync(0xffffffffu, live); todo;
+         todo &= todo - 1) {
+      const int j = __ffs(todo) - 1;
+      const float wj = __shfl_sync(0xffffffffu, w, j);
+      const float* src = pacc + ((c0 + j) * stride + row) * D;
+#pragma unroll
+      for (int i = 0; i < kDimPerLane; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) acc[i] = fmaf(wj, src[d], acc[i]);
+      }
+    }
+    m_run = m_new;
+  }
+  const float denom = fmaxf(l_run, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < kDimPerLane; ++i) {
+    const int d = lane + 32 * i;
+    if (d < D)
+      store_f32(l_run > 0.f ? acc[i] / denom : 0.f, out + row * D + d);
+  }
+}
+
+// Launch of merge_partials_kernel over every (query token, head).
+template <typename QT>
+inline void merge_partials(const float* pm, const float* pl,
+                           const float* pacc, QT* out, int Tq, int H, int D,
+                           int M, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(Tq) * H;
+  merge_partials_kernel<QT>
+      <<<static_cast<unsigned>((rows + kWarps - 1) / kWarps), kThreads, 0,
+         stream>>>(pm, pl, pacc, out, Tq, H, D, M);
 }
 
 }  // namespace spin

@@ -73,6 +73,20 @@ def test_verify_attention_matches_plain(gen, kv, tree, H, Kh, D):
     _check(verify_attention, verify_attention_plain, "verify_attention", a)
 
 
+@pytest.mark.parametrize("kv,tree,H,Kh,D", [
+    ("bf16", False, 32, 32, 128), ("f32", False, 32, 32, 128),
+    ("bf16", True, 16, 8, 96), ("f32", True, 12, 12, 64)])
+def test_verify_attention_split_kv(gen, kv, tree, H, Kh, D):
+    """Many tiles: ~2000 slots in the dense plan's 128-cell rows (mostly
+    padding), and contexts up to 230 tokens interleaved."""
+    lens = [20, 35, 230, 12, 100, 77, 5, 150, 60, 210, 31, 8]
+    a = cases.plan_verify_inputs(gen, lens, 4, H, Kh, D, kv, tree)
+    _check(verify_attention, verify_attention_plain, "verify_attention", a)
+    a = cases.dense_verify_inputs(gen, [37, 180, 95, 12, 230, 61], 4, H, Kh,
+                                  D, kv, tree)
+    _check(verify_attention, verify_attention_plain, "verify_attention", a)
+
+
 @pytest.mark.parametrize("kv,H,Kh,D", [
     ("bf16", 32, 32, 128), ("f32", 16, 4, 96), ("bf16", 12, 12, 64)])
 def test_decode_attention_matches_plain(gen, kv, H, Kh, D):
@@ -109,6 +123,18 @@ def test_flash_attention_matches_plain(gen, kv, S, H, Kh, D, window):
     """Causal and windowed prefill, G = 1, 6 and 7, S not a multiple of
     the tile."""
     a = cases.flash_inputs(gen, 2, S, H, Kh, D, kv, window)
+    _check(flash_attention, flash_attention_plain, "flash_attention", a)
+
+
+@pytest.mark.parametrize("S,H,Kh,D,window", [
+    (200, 8, 8, 64, 0), (45, 6, 1, 64, 7), (130, 56, 8, 96, 0),
+    (333, 64, 8, 128, 32), (63, 32, 32, 128, 0), (64, 7, 1, 96, 0),
+    (1, 48, 8, 128, 0), (257, 48, 8, 128, 7), (100, 16, 16, 96, 32)])
+def test_flash_attention_bf16_tensor_cores(gen, S, H, Kh, D, window):
+    """The tensor-core kernel (bf16): D 64 / 96 / 128, G 1 / 6 / 7 / 8,
+    S below one 64-key tile and not a multiple of it, windows narrower
+    than a tile, B = 2."""
+    a = cases.flash_inputs(gen, 2, S, H, Kh, D, "bf16", window)
     _check(flash_attention, flash_attention_plain, "flash_attention", a)
 
 

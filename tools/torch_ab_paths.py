@@ -1,14 +1,30 @@
-"""One side of a same-call A/B of the PyTorch port's LLaMA-7B serving
-paths on an NVIDIA card: the full-width zoo of ``chip_smoke.py`` (LLaMA-7B
-+ LLaMA-68M/265M/616M, random bf16 weights, seeds 0-3), workload ``mix``
-(6 requests, scale 0.3, capacity 6, gamma 4), first on the paged layout
-with the fused kernels, then on the dense layout; one untimed pass and
-three timed runs each (host clock around a run ending in a synchronize).
+"""One side of a same-call A/B of the PyTorch port on an NVIDIA card.
+
+Serving mode: the full-width zoo of ``chip_smoke.py`` (LLaMA-7B +
+LLaMA-68M/265M/616M, random bf16 weights, seeds 0-3), workload ``mix`` (6
+requests, scale 0.3, capacity 6, gamma 4), first on the paged layout with
+the fused kernels, then on the dense layout; one untimed pass and three
+timed runs each (host clock around a run ending in a synchronize).
 Prints one line ``AB {json}`` with the wall ms per slot.
 
     python3 tools/torch_ab_paths.py <checkout root> <label> [paged,dense]
 
 The optional third argument picks the layouts (default both).
+
+Kernel mode: saved inputs, timed with the kernels of the tree at <root>.
+
+    python3 tools/torch_ab_paths.py <root> prepare <inputs.pt>
+    python3 tools/torch_ab_paths.py <root> <label> kernels <inputs.pt>
+
+``prepare`` (run it with the tree that has ``chip_smoke.py``) saves
+``chip_smoke``'s path inputs: layer 0's q/k/v of LLaMA-7B (S 2048) and of
+mixtral-8x22b (S 6144, window 4096) for ``flash_attention``, and the
+largest ``verify_attention`` call of the dense LLaMA-7B serving path.
+``kernels`` times ``flash_attention`` and ``verify_attention`` of the tree
+at <root> on them: the median of 15 individually timed calls, the L2
+cache flushed before each, with the device held busy while the host
+enqueues them (``chip_smoke.Timer``'s method), and each output's largest
+difference from the plain version.  Prints ``ABK {json}``.
 
 Compare two trees in one call, in turns: unpack the other tree (e.g.
 ``git archive``) into an ignored directory and run parent, change,
@@ -22,57 +38,132 @@ import sys
 import time
 
 root, label = sys.argv[1], sys.argv[2]
-paths = sys.argv[3].split(",") if len(sys.argv) > 3 else ["paged", "dense"]
+mode = sys.argv[3] if len(sys.argv) > 3 else "paged,dense"
 sys.path.insert(0, root + "/src")
 
 import torch  # noqa: E402
 
-from repro_torch.configs import spin_llama  # noqa: E402
 from repro_torch.core import spec_decode as sd  # noqa: E402
-from repro_torch.data.workloads import make_workload  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.launch.serve import make_selector  # noqa: E402
-from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.serving.engine import EngineConfig, SpinEngine  # noqa: E402
 
 if not sd.__file__.startswith(root):
     sys.exit(f"imported {sd.__file__}, not the tree under {root}")
-build.build_all()
 
 
-def bundle(cfg, seed):
-    cfg = dataclasses.replace(cfg, dtype="bfloat16")
-    return sd.Bundle(cfg, T.init_params(cfg, seed, device="cuda"))
+def prepare(path):
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+
+    llm, ssms = cs.full_zoo("bfloat16")
+    with cs.Tap(ops, "verify_attention") as tap:
+        cs.serve(llm, ssms, 6, 0.3, capacity=6, kv_layout="dense",
+                 fused_kernels="off")
+    saved = {"verify_attention": tap.best,
+             "flash llama-7b": cs.layer0_qkv(llm, 2048, seed=7)}
+    del llm, ssms
+    torch.cuda.empty_cache()
+    llm, _ = cs.full_zoo("bfloat16", cs.MIXTRAL_LAYERS,
+                         llm_cfg=registry.get("mixtral-8x22b"))
+    saved["flash mixtral-8x22b"] = cs.layer0_qkv(llm, 6144, seed=7)
+    for a in saved.values():
+        a.pop("model", None)
+    torch.save(saved, path)
+    print(f"saved {sorted(saved)} to {path}", flush=True)
 
 
-llm = bundle(spin_llama.LLAMA_7B, 0)
-ssms = [bundle(c, i + 1) for i, c in enumerate(spin_llama.SSM_ZOO[:3])]
-
-
-def serve(**kw):
-    """Serve the workload to the end; (wall ms per slot, slots)."""
-    reqs = make_workload("mix", 6, 32000, seed=0, scale=0.3)
-    sel = make_selector("lbss", 3, 6, {r.rid: r.prompt_len for r in reqs}, 0,
-                        group_of={r.rid: r.dataset for r in reqs})
-    eng = SpinEngine(llm, ssms, sel,
-                     EngineConfig(gamma=4, capacity=6, max_len=256, **kw))
-    eng.add_requests(reqs)
+def timed(fn, reps=15, spin_cycles=300_000_000):
+    """Median device ms of ``reps`` calls, each with the L2 flushed first;
+    the device spins while the host enqueues, so no event pair spans host
+    time."""
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.run(max_slots=400)
-    torch.cuda.synchronize()
-    slots = len(eng.slot_log)
-    return (time.perf_counter() - t0) * 1e3 / slots, slots
+    for _ in range(3):
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        spun = torch.cuda.Event()
+        torch.cuda._sleep(spin_cycles)
+        spun.record()
+        for s, e in ev:
+            flush.zero_()
+            s.record()
+            fn()
+            e.record()
+        host_ahead = not spun.query()
+        torch.cuda.synchronize()
+        if host_ahead:
+            return statistics.median(s.elapsed_time(e) for s, e in ev)
+        spin_cycles *= 4
+    raise RuntimeError("the host could not enqueue ahead of the device")
 
 
-out = {"label": label}
-for name, kw in (("paged", dict(fused_kernels="on")),
-                 ("dense", dict(kv_layout="dense"))):
-    if name not in paths:
-        continue
-    serve(**kw)
-    runs = [serve(**kw) for _ in range(3)]
-    out[name] = dict(ms_per_slot=[r[0] for r in runs],
-                     slots=[r[1] for r in runs],
-                     median=statistics.median(r[0] for r in runs))
-print("AB " + json.dumps(out), flush=True)
+def kernels(path):
+    from repro_torch.kernels import flash_attention, verify_attention
+
+    build.build_all(["flash_attention", "verify_attention"])
+    saved = torch.load(path)
+    out = {"label": label, "card": torch.cuda.get_device_name(0)}
+    for name, a in saved.items():
+        mod = verify_attention if name == "verify_attention" else \
+            flash_attention
+        kern = getattr(mod, mod.NAME)
+        plain = getattr(mod, mod.NAME + "_plain")
+        err = (kern(**a).float() - plain(**a).float()).abs().max().item()
+        out[name] = dict(ms=timed(lambda: kern(**a)), max_abs_err=err,
+                         shape=list(a["q"].shape))
+    print("ABK " + json.dumps(out), flush=True)
+
+
+def serving(paths):
+    from repro_torch.configs import spin_llama
+    from repro_torch.data.workloads import make_workload
+    from repro_torch.launch.serve import make_selector
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import EngineConfig, SpinEngine
+
+    build.build_all()
+
+    def bundle(cfg, seed):
+        cfg = dataclasses.replace(cfg, dtype="bfloat16")
+        return sd.Bundle(cfg, T.init_params(cfg, seed, device="cuda"))
+
+    llm = bundle(spin_llama.LLAMA_7B, 0)
+    ssms = [bundle(c, i + 1) for i, c in enumerate(spin_llama.SSM_ZOO[:3])]
+
+    def serve(**kw):
+        """Serve the workload to the end; (wall ms per slot, slots)."""
+        reqs = make_workload("mix", 6, 32000, seed=0, scale=0.3)
+        sel = make_selector("lbss", 3, 6,
+                            {r.rid: r.prompt_len for r in reqs}, 0,
+                            group_of={r.rid: r.dataset for r in reqs})
+        eng = SpinEngine(llm, ssms, sel,
+                         EngineConfig(gamma=4, capacity=6, max_len=256, **kw))
+        eng.add_requests(reqs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(max_slots=400)
+        torch.cuda.synchronize()
+        slots = len(eng.slot_log)
+        return (time.perf_counter() - t0) * 1e3 / slots, slots
+
+    out = {"label": label}
+    for name, kw in (("paged", dict(fused_kernels="on")),
+                     ("dense", dict(kv_layout="dense"))):
+        if name not in paths:
+            continue
+        serve(**kw)
+        runs = [serve(**kw) for _ in range(3)]
+        out[name] = dict(ms_per_slot=[r[0] for r in runs],
+                         slots=[r[1] for r in runs],
+                         median=statistics.median(r[0] for r in runs))
+    print("AB " + json.dumps(out), flush=True)
+
+
+if label == "prepare":
+    prepare(mode)
+elif mode == "kernels":
+    kernels(sys.argv[4])
+else:
+    serving(mode.split(","))
