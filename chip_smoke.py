@@ -8,7 +8,8 @@ script then exits non-zero without its last line.  Phases:
 
 1. the card (name, power limit, torch and CUDA versions);
 2. the build of every CUDA kernel under src/repro_torch/kernels/csrc (one
-   nvcc per source, in parallel), with ptxas' registers and spills;
+   nvcc per source, in parallel), with ptxas' registers and spills (each
+   entry of the redesigned sources);
 3. kernel checks: each kernel against its plain PyTorch version on the
    card, at the head geometries of the serving path (LLaMA-7B verify
    H=Kh=32 D=128; SSM decode H=12 D=64 and H=16 D=96), with bf16, int8, fp8
@@ -17,7 +18,10 @@ script then exits non-zero without its last line.  Phases:
    dense kernels interleaved packed segments with contexts up to 230
    tokens, ~2000-slot buffers in the dense plan's 128-cell rows (split-KV
    over 16 runs), padding cells, rows of length 0, cache lengths not a
-   multiple of 32);
+   multiple of 32; for fused_paged_decode's split layout draft steps at B
+   = 1 and 6 over rows of 0 to 64 blocks and block sizes 8 and 32; for
+   paged_verify_attention block lists in no order, of 1, 17 and 64
+   entries, block sizes 8 and 32);
 4. the paged main path: the port's SpinEngine serving the mix workload with
    LLaMA-7B (32 layers, full width) and the SSMs LLaMA-68M/265M/616M at
    full width, random bf16 weights, paged bf16 KV, fused kernels on.  An
@@ -150,7 +154,8 @@ SOURCES = {
 MIXTRAL_LAYERS, DBRX_LAYERS = 4, 2
 PAGED = [n for n, (_, _, path) in SOURCES.items() if path == "paged"]
 # sources whose every kernel entry chip_smoke's build log lists
-REDESIGNED = ("flash_attention", "verify_attention")
+REDESIGNED = ("flash_attention", "verify_attention", "fused_decode",
+              "paged_attention")
 
 
 def log(*a):
@@ -484,8 +489,9 @@ def shape_of(a):
         {"window": a["window"]} if "window" in a else {})
 
 
-def phase_kernel_checks(timer, report):
-    gen = torch.Generator().manual_seed(11)
+def kernel_check_cases(gen):
+    """Every (kernel, label, inputs) of phase 3, made from ``gen`` in a
+    fixed order (``tools/torch_ab_paths.py`` saves the same inputs)."""
     lens7b = [37, 180, 95, 12, 230, 61]
     rows = [40, 0, 150, 7, 96, 230]                  # 0 = an idle row
     todo = []
@@ -549,7 +555,46 @@ def phase_kernel_checks(timer, report):
                      f"llama-7b {kv} {'tree' if tree else 'linear'}",
                      cases.verify_inputs(gen, lens7b, 4, 32, 32, 128, 16, kv,
                                          tree)))
-    run_checks(todo, timer, report)
+    # fused_paged_decode's split layout (fewer query rows than warps):
+    # draft steps at B = 1 and 6 over rows of 0, 1, 3, 5 and 64 blocks
+    # (length 16 k - 1 + T = 16 k slots), block sizes 8 and 32
+    blocks = [0, 15, 47, 79, 1023, 20]
+    for H, D, tag in ((12, 64, "llama-68m"), (16, 96, "llama-616m")):
+        todo.append(("fused_paged_decode",
+                     f"{tag} draft T=1 B=6 rows of 0/1/3/5/64/2 blocks bf16",
+                     cases.decode_inputs(gen, blocks, 1, H, H, D, 16,
+                                         "bf16")))
+    for L, kv in ((1023, "bf16"), (15, "int8"), (47, "fp8")):
+        todo.append(("fused_paged_decode",
+                     f"llama-616m draft T=1 B=1 {(L + 1) // 16} blocks {kv}",
+                     cases.decode_inputs(gen, [L], 1, 16, 16, 96, 16, kv)))
+    for bs, kv in ((8, "bf16"), (32, "int8"), (8, "f32")):
+        todo.append(("fused_paged_decode", f"llama-616m draft T=1 bs={bs} "
+                     f"{kv}", cases.decode_inputs(gen, rows, 1, 16, 16, 96,
+                                                  bs, kv)))
+    todo.append(("fused_paged_decode", "llama-68m catch-up T=5 bs=32 bf16",
+                 cases.decode_inputs(gen, rows, 5, 12, 12, 64, 32, "bf16")))
+    # paged_verify_attention: block lists in no order (owners shuffled,
+    # padding entries among them) and of 1, 17 and 64 entries
+    for kv, tree, n in (("bf16", False, None), ("int8", True, None),
+                        ("fp8", True, 17), ("bf16", True, 1),
+                        ("int8", False, 17), ("f32", False, 64)):
+        todo.append(("paged_verify_attention",
+                     f"llama-7b shuffled entries M={n or 'pow2'} {kv} "
+                     f"{'tree' if tree else 'linear'}",
+                     cases.verify_inputs(gen, lens7b, 4, 32, 32, 128, 16, kv,
+                                         tree, shuffle=True, n_entries=n)))
+    for bs, kv in ((8, "bf16"), (32, "fp8")):
+        todo.append(("paged_verify_attention",
+                     f"llama-7b bs={bs} {kv} tree",
+                     cases.verify_inputs(gen, lens7b, 4, 32, 32, 128, bs, kv,
+                                         True, shuffle=True)))
+    return todo
+
+
+def phase_kernel_checks(timer, report):
+    run_checks(kernel_check_cases(torch.Generator().manual_seed(11)), timer,
+               report)
 
 
 def run_checks(todo, timer, report):
@@ -734,9 +779,11 @@ def phase_main_path(report):
         + json.dumps(line))
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])
     shown = top[:8] + [kv for kv in top[8:] if "spin::" in kv[0]]
-    log("main path device ms by kernel (profiled run) " + json.dumps(
-        {k[:90]: {"device_ms": ms, "calls": n} for k, (ms, n) in shown}))
+    by_kernel = {k[:90]: {"device_ms": ms, "calls": n} for k, (ms, n) in shown}
+    log("main path device ms by kernel (profiled run) "
+        + json.dumps(by_kernel))
     report["main_path"] = line
+    report["main_path_device_ms_by_kernel"] = by_kernel
     # flash_attention's LLaMA-7B input: layer 0 of this model
     qkv = layer0_qkv(llm, 2048, seed=7)
     del eng, llm, ssms, prof
@@ -1149,7 +1196,9 @@ def main():
     def timed(phase, *args):
         t = time.perf_counter()
         out = phase(*args)
-        log(f"{phase.__name__}: {time.perf_counter() - t:.1f} s")
+        dt = time.perf_counter() - t
+        log(f"{phase.__name__}: {dt:.1f} s")
+        report.setdefault("phase_s", {})[phase.__name__] = dt
         return out
 
     timed(phase_kernel_checks, timer, report)

@@ -121,7 +121,7 @@ def ptxas_entries(text: str) -> list:
             continue
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            short = re.search(r"\d+([A-Za-z_]+_kernel)(\w{0,24})", name)
+            short = re.search(r"\d+([A-Za-z_]+_kernel)(\w{0,40})", name)
             smem = re.search(r"(\d+) bytes smem", ln)
             out.append(dict(
                 entry="".join(short.groups()) if short else name[:48],
@@ -151,14 +151,57 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def query_tile(tokens: int, group: int, other_ctas: int, device) -> int:
+def query_tile(tokens: int, group: int, other_ctas: int, sms: int) -> int:
     """Query tokens per CTA: as many as fit (MAX_ROWS rows of ``group``
     heads each) while the grid still has about two CTAs per SM; at short
     contexts the kernels are latency-bound, so more, smaller CTAs finish
     sooner.  ``other_ctas`` is the grid's size without the query axis."""
-    sms = sm_count(device)
     fill = (tokens * other_ctas) // (2 * sms)
     return max(1, min(MAX_ROWS // group, fill))
+
+
+# The tile pipeline of csrc/tile_pipeline.cuh (split fused_paged_decode,
+# paged_verify_attention): 32-slot K/V tiles in shared memory, dealt to
+# teams of warps, each team with its own stages of cp.async buffers.
+KV_TILE = 32          # slots per tile: csrc/paged_common.cuh kTile
+WARPS = 4             # kWarps
+ROWS_PER_WARP = 4     # kRowsPerWarp
+MAX_STAGES = 4
+# shared memory of an SM (the H100's 228 KiB; a CTA may take 227) and the
+# stage bytes a CTA may take at two CTAs per SM, with room for the queries
+# and the block lists
+SMEM_PER_SM = 228 * 1024
+STAGE_BUDGET = 108 * 1024
+
+
+def stage_bytes(D: int, kv_bytes: int) -> int:
+    """One stage of tile_pipeline.cuh (``pipe::stage_bytes``): 32 K rows
+    padded to an odd number of 16-byte chunks, 32 V rows in whole chunks,
+    six 32-word tag arrays."""
+    chunks = -(-D * kv_bytes // 16)
+    k_row = chunks + (chunks % 2 == 0)
+    return KV_TILE * 16 * (k_row + chunks) + 6 * KV_TILE * 4
+
+
+def tile_pipeline(rows: int, tiles: int, D: int, kv_bytes: int, ctas: int,
+                  sms: int):
+    """(warps per team, stages per team) for a grid of ``ctas`` CTAs of
+    ``rows`` query rows over at most ``tiles`` 32-slot tiles each.  A team
+    has as many warps as it takes to give each at most one row (up to all
+    four): a warp with one row runs the short code (csrc/tile_pipeline.cuh,
+    ``Rows<1>``), measured faster on the H100 than more teams whose warps
+    score several rows each.  Each team gets as many stages as its share of
+    the tiles needs, up to :data:`MAX_STAGES` and a byte budget:
+    :data:`STAGE_BUDGET` (two CTAs per SM), less where the grid needs three
+    or four CTAs per SM to be resident at once; at least one."""
+    per_sm = max(2, min(4, -(-ctas // sms)))
+    budget = min(STAGE_BUDGET, SMEM_PER_SM // per_sm - 3 * 1024)
+    wpt = 1 if rows <= 1 else (2 if rows <= 2 else WARPS)
+    teams = WARPS // wpt
+    need = max(1, -(-tiles // teams))
+    stages = max(1, min(MAX_STAGES, need,
+                        budget // (teams * stage_bytes(D, kv_bytes))))
+    return wpt, stages
 
 
 _SMS: Dict[int, int] = {}

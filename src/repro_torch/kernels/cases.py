@@ -31,11 +31,15 @@ def _quantized(x, kv):
 
 
 def verify_inputs(gen, lens, W, H, Kh, D, bs, kv, tree, idle_rows=2,
-                  pad_queries=2, device="cuda"):
+                  pad_queries=2, shuffle=False, n_entries=None,
+                  device="cuda"):
     """Packed verify over a fragmented pool: len(lens) requests with W + 1
     queries each, idle rows (queries, no blocks), padding queries (seg -1),
     trailing padding entries; tree cases carry random node tags in
-    [-2, 31] on speculative slots and random 32-bit ancestor masks."""
+    [-2, 31] on speculative slots and random 32-bit ancestor masks.
+    ``shuffle`` permutes the block list (owners no longer grouped or
+    sorted, padding entries among them); ``n_entries`` cuts or pads the
+    list to that length (a cut block is simply not attended)."""
     nblk = [math.ceil((L + W + 1) / bs) for L in lens]
     N = sum(nblk) + 4
     perm = torch.randperm(N, generator=gen).tolist()
@@ -55,10 +59,13 @@ def verify_inputs(gen, lens, W, H, Kh, D, bs, kv, tree, idle_rows=2,
             node.append(torch.where(pos >= L, tag, -1))
     drop = torch.rand((N, bs), generator=gen) < 0.05    # rolled-back slots
     pool_seg[drop] = -1
-    M = 1 << (len(ids) - 1).bit_length()
-    ids += [0] * (M - len(ids))
-    owner += [-1] * (M - len(owner))
-    node += [torch.full((bs,), -1)] * (M - len(node))
+    M = 1 << (len(ids) - 1).bit_length() if n_entries is None else n_entries
+    ids = (ids + [0] * M)[:M]
+    owner = (owner + [-1] * M)[:M]
+    node = (node + [torch.full((bs,), -1)] * M)[:M]
+    if shuffle:
+        perm = torch.randperm(M, generator=gen).tolist()
+        ids, owner, node = ([x[i] for i in perm] for x in (ids, owner, node))
     n_rows = len(lens) + idle_rows
     q_seg = [r for r in range(n_rows) for _ in range(W + 1)] + \
         [-1] * pad_queries

@@ -1,5 +1,6 @@
 // Shared pieces of the attention kernels (fused_verify.cu, fused_decode.cu,
-// verify_attention.cu, decode_attention.cu, paged_attention.cu): element
+// verify_attention.cu, decode_attention.cu, paged_attention.cu; the
+// redesigned paged kernels add tile_pipeline.cuh): element
 // conversions, warp reductions, the shared-memory layout, the dequantizing
 // K/V tile loader, the per-tile online-softmax step and the merge of
 // split-KV partials.
@@ -338,26 +339,22 @@ __device__ __forceinline__ void store_row(QT* out_row, int D, float l,
   }
 }
 
-// Merge of split-KV partials (paged_attention.cu's paged_verify_attention,
-// verify_attention.cu): one warp per (query token, head), lane i reading
-// partial c0 + i of each chunk of 32, so a chunk's (m, l) cost one memory
-// round trip.  Partial i of row (t, head) is pm/pl[i * Tq * H + t * H +
-// head] and pacc[(...) * D + d], all float32: an unnormalised running max
-// m, sum l and accumulator.  Partials with l = 0 attended nothing and are
-// skipped (their pacc is never read); the others are rescaled to the
-// running max of the live ones and summed, lane holding dims lane + 32 i.
-// Zeros where no partial attended anything.  Launch with kThreads threads
-// and ceil(Tq * H / kWarps) CTAs.
+// Merge of split-KV partials (verify_attention.cu's merge launch,
+// paged_attention.cu's last run of a query tile): one warp per (query
+// token, head), lane i reading partial c0 + i of each chunk of 32, so a
+// chunk's (m, l) cost one memory round trip.  Partial i of row `row` (t *
+// H + head) is pm/pl[i * stride + row] and pacc[(...) * D + d], all
+// float32: an unnormalised running max m, sum l and accumulator.
+// Partials with l = 0 attended nothing and are skipped (their pacc is never
+// read); the others are rescaled to the running max of the live ones and
+// summed, lane holding dims lane + 32 i.  Zeros where no partial attended
+// anything.  The loads go to L2 (ld.cg): partials written by other CTAs of
+// the same launch are never met stale in L1.
 template <typename QT>
-__global__ void __launch_bounds__(kThreads)
-    merge_partials_kernel(const float* __restrict__ pm,
-                          const float* __restrict__ pl,
-                          const float* __restrict__ pacc,
-                          QT* __restrict__ out, int Tq, int H, int D, int M) {
-  const long long stride = static_cast<long long>(Tq) * H;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (row >= stride) return;         // warp-uniform
+__device__ __forceinline__ void merge_row(const float* pm, const float* pl,
+                                          const float* pacc, QT* out_row,
+                                          long long stride, long long row,
+                                          int D, int M) {
   const int lane = threadIdx.x & 31;
   float m_run = -CUDART_INF_F, l_run = 0.f, acc[kDimPerLane];
 #pragma unroll
@@ -365,8 +362,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int c0 = 0; c0 < M; c0 += 32) {
     float mi = -CUDART_INF_F, li = 0.f;
     if (c0 + lane < M) {
-      li = pl[(c0 + lane) * stride + row];
-      mi = pm[(c0 + lane) * stride + row];
+      li = __ldcg(pl + (c0 + lane) * stride + row);
+      mi = __ldcg(pm + (c0 + lane) * stride + row);
     }
     const bool live = li > 0.f;
     const float m_new = fmaxf(m_run, warp_max(live ? mi : -CUDART_INF_F));
@@ -384,7 +381,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < kDimPerLane; ++i) {
         const int d = lane + 32 * i;
-        if (d < D) acc[i] = fmaf(wj, src[d], acc[i]);
+        if (d < D) acc[i] = fmaf(wj, __ldcg(src + d), acc[i]);
       }
     }
     m_run = m_new;
@@ -393,9 +390,23 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < kDimPerLane; ++i) {
     const int d = lane + 32 * i;
-    if (d < D)
-      store_f32(l_run > 0.f ? acc[i] / denom : 0.f, out + row * D + d);
+    if (d < D) store_f32(l_run > 0.f ? acc[i] / denom : 0.f, out_row + d);
   }
+}
+
+// merge_row over every (query token, head) of Tq * H: launch with
+// kThreads threads and ceil(Tq * H / kWarps) CTAs.
+template <typename QT>
+__global__ void __launch_bounds__(kThreads)
+    merge_partials_kernel(const float* __restrict__ pm,
+                          const float* __restrict__ pl,
+                          const float* __restrict__ pacc,
+                          QT* __restrict__ out, int Tq, int H, int D, int M) {
+  const long long stride = static_cast<long long>(Tq) * H;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= stride) return;         // warp-uniform
+  merge_row(pm, pl, pacc, out + row * D, stride, row, D, M);
 }
 
 // Launch of merge_partials_kernel over every (query token, head).

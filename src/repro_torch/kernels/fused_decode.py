@@ -7,6 +7,10 @@ prefill appends (T = the bucketed chunk width) and unpacked verification.
 version (:func:`fused_paged_decode_plain`: gather each row's blocks dense,
 then masked attention).  On a CUDA tensor it launches the hand-written
 kernel ``csrc/fused_decode.cu`` or raises; there is no fallback on the card.
+:func:`decode_plan` picks the kernel's layout: a CTA with fewer query rows
+than warps deals the row's tiles to its warps (the draft steps and the
+catch-up); four rows or more keep the row layout, each warp scoring its
+rows over every tile.
 """
 
 from __future__ import annotations
@@ -24,10 +28,27 @@ NAME = "fused_paged_decode"
 fused_paged_decode_plain = ref.paged_seq_decode_ref
 
 
+def decode_plan(B: int, T: int, G: int, Kh: int, NB: int, bs: int, D: int,
+                kv_bytes: int, sms: int):
+    """(query tokens per CTA, warps per team, stages) of one call.  The
+    query tile is :func:`build.query_tile`'s (about two CTAs per SM).  A
+    tile of fewer than four rows (``build.WARPS``) takes the split layout:
+    the row's 32-slot tiles (at most ``ceil(NB * bs / 32)``) are dealt to
+    teams of warps, sized by :func:`build.tile_pipeline`.  Otherwise warps
+    per team is 0: the row layout, each warp scoring its rows over every
+    tile."""
+    bq = build.query_tile(T, G, B * Kh, sms)
+    if bq * G >= build.WARPS:
+        return bq, 0, 0
+    wpt, stages = build.tile_pipeline(bq * G, -(-NB * bs // build.KV_TILE),
+                                      D, kv_bytes, B * Kh * -(-T // bq), sms)
+    return bq, wpt, stages
+
+
 def _c_fn():
     fn = build.load("fused_decode").spin_fused_paged_decode
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 11 + [i] * 10 + [ctypes.c_float, p]
+    fn.argtypes = [p] * 11 + [i] * 12 + [ctypes.c_float, p]
     fn.restype = i
     return fn
 
@@ -55,14 +76,15 @@ def fused_paged_decode(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
                            ("block_tables", block_tables, (B, NB))):
         build.check_int(name, t, shape, q.device)
     out = torch.empty_like(q)
-    G = H // k_pool.shape[2]
+    _, bs, Kh, _ = k_pool.shape
+    bq, wpt, stages = decode_plan(B, T, H // Kh, Kh, NB, bs, D,
+                                  k_pool.element_size(),
+                                  build.sm_count(q.device))
     ptr = build.ptr
     rc = _c_fn()(
         ptr(q), ptr(k_pool), ptr(v_pool), ptr(pool_seg), ptr(pool_pos),
         ptr(q_seg), ptr(q_pos), ptr(block_tables), ptr(k_scale),
-        ptr(v_scale), ptr(out), B, T, H, k_pool.shape[2], D,
-        k_pool.shape[1], NB, build.query_tile(T, G, B * k_pool.shape[2],
-                                              q.device),
+        ptr(v_scale), ptr(out), B, T, H, Kh, D, bs, NB, bq, wpt, stages,
         q_code, kv_code, 1.0 / math.sqrt(D), build.stream_of(q))
     build.raise_on(rc, NAME)
     build.LAUNCHES[NAME] += 1

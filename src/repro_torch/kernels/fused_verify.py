@@ -67,7 +67,8 @@ def fused_paged_verify(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
         ptr(q_seg), ptr(q_pos), ptr(q_anc), ptr(block_ids),
         ptr(block_owner), ptr(block_node), ptr(k_scale), ptr(v_scale),
         ptr(out), Tq, H, k_pool.shape[2], D, bs, M,
-        build.query_tile(Tq, G, k_pool.shape[2], q.device), q_code, kv_code,
+        build.query_tile(Tq, G, k_pool.shape[2],
+                         build.sm_count(q.device)), q_code, kv_code,
         1.0 / math.sqrt(D),
         build.stream_of(q))
     build.raise_on(rc, NAME)

@@ -5,8 +5,9 @@
   table; slots valid iff their logical position is below ``lengths[b]``;
 * ``paged_verify_attention``: packed verification (Eq. 13) over a list of
   live blocks, the function of ``fused_verify.fused_paged_verify`` computed
-  split-KV: one partial per (query tile, kv head, block entry), then a
-  merge (two launches, one call).
+  over runs of block entries (:func:`run_plan`): one CTA per (query tile,
+  kv head, run); with more than one run, each writes a partial and the
+  last of a (tile, head) merges them, in the same launch.
 
 Both are public through ``kernels/ops.py``; the serving engine takes the
 fused kernels instead.  On a CPU tensor each wrapper runs its plain version;
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -28,6 +30,49 @@ VERIFY = "paged_verify_attention"
 # The plain versions: gather the blocks dense, then masked attention.
 paged_decode_attention_plain = ref.paged_decode_attention_ref
 paged_verify_attention_plain = ref.paged_verify_ref
+
+
+RUN_CTAS_PER_SM = 2
+MAX_RUNS = 32        # bounds the float32 partials' scratch
+MAX_RUN_SLOTS = 1024  # a run's slots (32 tiles), where MAX_RUNS allows
+
+
+def run_plan(Tq: int, G: int, Kh: int, M: int, bs: int, D: int,
+             kv_bytes: int, sms: int):
+    """(query tokens per CTA, block entries per run, runs, warps per team,
+    stages) of one call.  A CTA holds one query row per warp where the
+    GQA group allows it (``build.WARPS // G`` tokens, at least one; a
+    request verifies W + 1 of them, so a tile spans one or two
+    requests).  The runs bring the grid to about :data:`RUN_CTAS_PER_SM`
+    CTAs per SM, each at most :data:`MAX_RUN_SLOTS` slots long as long as
+    there are at most :data:`MAX_RUNS` runs; every entry lies in exactly
+    one run and no run is empty (M = 0: one empty run, which writes
+    zeros)."""
+    bq = max(1, build.WARPS // G)
+    base = -(-Tq // bq) * Kh
+    want = max(1, round(RUN_CTAS_PER_SM * sms / base))
+    n = max(M, 1)
+    per_run = min(-(-n // want), max(1, MAX_RUN_SLOTS // bs))
+    per_run = max(per_run, -(-n // MAX_RUNS))
+    runs = -(-n // per_run)
+    tiles = -(-per_run * bs // build.KV_TILE)
+    wpt, stages = build.tile_pipeline(bq * G, tiles, D, kv_bytes,
+                                      base * runs, sms)
+    return bq, per_run, runs, wpt, stages
+
+
+# Per (device, stream): int32 counters of the last-run merge, zero between
+# calls (the merging CTA resets its own); grown on demand.
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index or 0, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return buf
 
 
 def _c_fn(name, n_ptr, n_int):
@@ -69,9 +114,10 @@ def paged_verify_attention(q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
                            q_pos, block_ids, block_owner, q_anc=None,
                            block_node=None, k_scale=None, v_scale=None):
     """Packed verification over live pool blocks; arguments and result as
-    ``fused_verify.fused_paged_verify``.  On the card: a partial kernel
-    over (query tile, kv head, block entry) into float32 scratch, then a
-    merge kernel; one count in :data:`build.LAUNCHES` per call."""
+    ``fused_verify.fused_paged_verify``.  On the card: one launch over
+    (query tile, kv head, run of block entries) (:func:`run_plan`); with
+    more than one run, float32 partials and a merge by each (tile, head)'s
+    last run; one count in :data:`build.LAUNCHES` per call."""
     if q.device.type == "cpu":
         return paged_verify_attention_plain(
             q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos, block_ids,
@@ -89,20 +135,26 @@ def paged_verify_attention(q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
                            ("block_owner", block_owner, (M,)),
                            ("block_node", block_node, (M, bs))):
         build.check_int(name, t, shape, q.device)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    pm = torch.empty((M, Tq, H), **f32)
-    pl = torch.empty((M, Tq, H), **f32)
-    pacc = torch.empty((M, Tq, H, D), **f32)
+    bq, per_run, runs, wpt, stages = run_plan(
+        Tq, H // Kh, Kh, M, bs, D, k_pool.element_size(),
+        build.sm_count(q.device))
+    stream = build.stream_of(q)
+    pm = pl = pacc = counters = None
+    if runs > 1:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        pm = torch.empty((runs, Tq, H), **f32)
+        pl = torch.empty((runs, Tq, H), **f32)
+        pacc = torch.empty((runs, Tq, H, D), **f32)
+        counters = _counters(q.device, stream, -(-Tq // bq) * Kh)
     out = torch.empty_like(q)
-    G = H // Kh
     ptr = build.ptr
-    rc = _c_fn(VERIFY, 17, 9)(
+    rc = _c_fn(VERIFY, 18, 13)(
         ptr(q), ptr(k_pool), ptr(v_pool), ptr(pool_seg), ptr(pool_pos),
         ptr(q_seg), ptr(q_pos), ptr(q_anc), ptr(block_ids), ptr(block_owner),
         ptr(block_node), ptr(k_scale), ptr(v_scale), ptr(pm), ptr(pl),
-        ptr(pacc), ptr(out), Tq, H, Kh, D, bs, M,
-        build.query_tile(Tq, G, Kh * max(M, 1), q.device), q_code, kv_code,
-        1.0 / math.sqrt(D), build.stream_of(q))
+        ptr(pacc), ptr(counters), ptr(out), Tq, H, Kh, D, bs, M, bq,
+        per_run, runs, wpt, stages, q_code, kv_code, 1.0 / math.sqrt(D),
+        stream)
     build.raise_on(rc, VERIFY)
     build.LAUNCHES[VERIFY] += 1
     return out

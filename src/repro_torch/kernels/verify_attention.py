@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 NAME = "verify_attention"
-KV_TILE = 32       # slots per tile: csrc/paged_common.cuh kTile
+KV_TILE = build.KV_TILE
 TAG_GROUP = 4      # tiles whose tags a CTA reads in one pass (kWarps)
 MAX_RUNS = 32      # runs per call: bounds the float32 partials' scratch
 CTAS_PER_SM = 8    # most CTAs read one round of tags and exit

@@ -206,11 +206,13 @@ def test_paged_decode_attention_matches_reference(kv, qdt, H, Kh, D, bs):
 
 # ------------------------------------------------ paged_verify_attention --
 
-def verify_pool(rng, lens, gamma, bs, tree):
+def verify_pool(rng, lens, gamma, bs, tree, shuffle=False, n_entries=None):
     """Live blocks of each request (context + gamma + 1 new slots) over a
     shuffled pool, a few rolled-back slots (seg -1), two trailing padding
     entries (owner -1); tree cases tag the speculative slots with node ids
-    in [-2, 31] and give every query a random ancestor mask."""
+    in [-2, 31] and give every query a random ancestor mask.  ``shuffle``
+    permutes the block list (owners in no order, padding among them);
+    ``n_entries`` cuts or pads it to that length."""
     ids, owner, node = [], [], []
     need = [-(-(L + gamma + 1) // bs) for L in lens]
     N = sum(need) + 3
@@ -231,6 +233,15 @@ def verify_pool(rng, lens, gamma, bs, tree):
     ids += [0, 0]
     owner += [-1, -1]
     node += [np.full(bs, -1)] * 2
+    if n_entries is not None:
+        pad = max(0, n_entries - len(ids))
+        ids, owner = (ids + [0] * pad)[:n_entries], \
+            (owner + [-1] * pad)[:n_entries]
+        node = (node + [np.full(bs, -1)] * pad)[:n_entries]
+    if shuffle:
+        perm = rng.permutation(len(ids))
+        ids, owner = [ids[i] for i in perm], [owner[i] for i in perm]
+        node = [node[i] for i in perm]
     q_seg = [r for r in range(len(lens)) for _ in range(gamma + 1)] + [-1]
     q_pos = [L + d for L in lens for d in range(gamma + 1)] + [-1]
     anc = rng.integers(-2**31, 2**31 - 1, len(q_seg))
@@ -239,13 +250,30 @@ def verify_pool(rng, lens, gamma, bs, tree):
                                  owner)], tree_args
 
 
-@pytest.mark.parametrize("kv,qdt,tree", [
-    ("bf16", "bf16", False), ("f32", "f32", True), ("int8", "f32", False),
-    ("fp8", "bf16", True), ("int8", "bf16", True)])
-def test_paged_verify_attention_matches_reference(kv, qdt, tree):
+# (bs, shuffled block list, entries): the redesigned kernel's edge
+# geometries -- owners in no order, a list length that is no multiple of a
+# run, block sizes 16 and 32 beside 8; the first five cases keep their ids
+BASE = (8, False, None)
+
+
+@pytest.mark.parametrize("kv,qdt,tree,geometry", [
+    pytest.param("bf16", "bf16", False, BASE, id="bf16-bf16-False"),
+    pytest.param("f32", "f32", True, BASE, id="f32-f32-True"),
+    pytest.param("int8", "f32", False, BASE, id="int8-f32-False"),
+    pytest.param("fp8", "bf16", True, BASE, id="fp8-bf16-True"),
+    pytest.param("int8", "bf16", True, BASE, id="int8-bf16-True"),
+    pytest.param("f32", "f32", True, (8, True, None), id="f32-shuffled"),
+    pytest.param("int8", "f32", False, (8, True, 17),
+                 id="int8-shuffled-M17"),
+    pytest.param("f32", "f32", False, (16, True, None), id="f32-bs16"),
+    pytest.param("bf16", "bf16", True, (32, True, None), id="bf16-bs32"),
+    pytest.param("fp8", "bf16", True, (16, False, 1), id="fp8-bs16-M1")])
+def test_paged_verify_attention_matches_reference(kv, qdt, tree, geometry):
     rng = np.random.default_rng(3 + tree)
-    H, Kh, D, bs, gamma = 4, 2, 16, 8, 3
-    N, tags, tree_args = verify_pool(rng, [13, 4, 21], gamma, bs, tree)
+    H, Kh, D, gamma = 4, 2, 16, 3
+    bs, shuffle, n_entries = geometry
+    N, tags, tree_args = verify_pool(rng, [13, 4, 21], gamma, bs, tree,
+                                     shuffle, n_entries)
     (jk, tk), (jv, tv), (jks, tks), (jvs, tvs) = pools(rng, (N, bs, Kh, D),
                                                        kv)
     Tq = int(tags[2][1].shape[0])

@@ -56,6 +56,20 @@ def test_fused_decode_matches_plain(gen, kv, T, G):
            "fused_paged_decode", a)
 
 
+# the split layout (fewer query rows than warps): draft steps over rows
+# of 0, 1, 3, 5 and 64 blocks of 16 (B 6 and B 1), block sizes 8 and 32
+@pytest.mark.parametrize("lens,H,D,bs,kv", [
+    ([0, 15, 47, 79, 1023, 20], 12, 64, 16, "bf16"),
+    ([0, 15, 47, 79, 1023, 20], 16, 96, 16, "f32"),
+    ([1023], 16, 96, 16, "int8"), ([15], 12, 64, 16, "fp8"),
+    ([40, 0, 150, 7, 96, 230], 16, 96, 8, "bf16"),
+    ([40, 0, 150, 7, 96, 230], 16, 96, 32, "fp8")])
+def test_fused_decode_split_layout(gen, lens, H, D, bs, kv):
+    a = cases.decode_inputs(gen, lens, 1, H, H, D, bs, kv)
+    _check(fused_paged_decode, fused_paged_decode_plain,
+           "fused_paged_decode", a)
+
+
 def test_wrapper_rejects_bad_inputs(gen):
     a = cases.decode_inputs(gen, [10, 3], 1, 4, 4, 64, 16, "int8")
     with pytest.raises(ValueError, match="k_scale"):
@@ -110,6 +124,20 @@ def test_paged_decode_attention_matches_plain(gen, kv, G):
     ("f32", True, 1)])
 def test_paged_verify_attention_matches_plain(gen, kv, tree, G):
     a = cases.verify_inputs(gen, [37, 5, 90], 4, 4 * G, 4, 64, 16, kv, tree)
+    _check(paged_attention.paged_verify_attention,
+           paged_attention.paged_verify_attention_plain,
+           "paged_verify_attention", a)
+
+
+# block lists in no order (owners shuffled, padding among them) of 1,
+# 17 and 64 entries; block sizes 8 and 32
+@pytest.mark.parametrize("kv,tree,n,bs", [
+    ("bf16", False, 1, 16), ("int8", True, 17, 16), ("fp8", True, 64, 16),
+    ("bf16", True, None, 8), ("int8", False, None, 32),
+    ("f32", True, 17, 16)])
+def test_paged_verify_attention_shuffled_entries(gen, kv, tree, n, bs):
+    a = cases.verify_inputs(gen, [37, 180, 95, 12, 230, 61], 4, 32, 32, 128,
+                            bs, kv, tree, shuffle=True, n_entries=n)
     _check(paged_attention.paged_verify_attention,
            paged_attention.paged_verify_attention_plain,
            "paged_verify_attention", a)

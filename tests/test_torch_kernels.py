@@ -186,6 +186,19 @@ DECODE_CASES = {
                       D=16, kv="int8"),
     "fp8": dict(seed=7, lens=[18, 7], T=2, bs=8, NB=4, H=4, Kh=1, D=16,
                 kv="fp8"),
+    # the split layout's edge geometries: draft rows of 0, 1, 3, 5 and 64
+    # blocks (more blocks than warps, and fewer), one row of 64 blocks,
+    # block sizes 8 and 32 beside 16
+    "draft-rows-0-1-3-5-64-blocks": dict(seed=8, lens=[0, 15, 47, 79, 1023],
+                                         T=1, bs=16, NB=64, H=4, Kh=4, D=16),
+    "draft-b1-64-blocks": dict(seed=9, lens=[1023], T=1, bs=16, NB=64, H=2,
+                               Kh=2, D=16, kv="int8"),
+    "draft-fewer-blocks-than-warps": dict(seed=10, lens=[15, 47, 20], T=1,
+                                          bs=16, NB=4, H=4, Kh=4, D=16),
+    "draft-bs8": dict(seed=11, lens=[40, 0, 7], T=1, bs=8, NB=8, H=4, Kh=4,
+                      D=16, kv="fp8"),
+    "catch-up-bs32": dict(seed=12, lens=[40, 0, 70], T=5, bs=32, NB=4, H=4,
+                          Kh=4, D=16),
 }
 
 

@@ -3,6 +3,14 @@
 * ``verify_attention.split_plan``: the split-KV grid of the dense packed
   verify covers every 32-slot tile exactly once, leaves no run empty and
   stays inside CUDA's grid limits up to 64k slots;
+* ``paged_attention.run_plan``: the runs of ``paged_verify_attention``
+  cover every block entry exactly once, leave no run empty, stay inside
+  CUDA's grid limits and shared memory, and fill the card at the ops
+  path's shape;
+* ``fused_decode.decode_plan`` and ``build.tile_pipeline``: the split
+  layout exactly where a CTA has fewer query rows than warps, at most four
+  rows a warp, stages within their byte budget, and the stage layout of
+  ``csrc/tile_pipeline.cuh``;
 * ``flash_attention.route``: bf16 goes to the tensor-core kernel, float32
   to the CUDA-core kernel, explicitly, and anything else raises;
 * ``cases.plan_verify_inputs`` (the dense plan's 128-cell rows, the
@@ -22,6 +30,9 @@ import numpy as np
 from repro.kernels.verify_attention import verify_attention as j_verify
 from repro_torch.kernels import build, cases, ops
 from repro_torch.kernels.flash_attention import MMA_HEAD_DIMS, route
+from repro_torch.kernels.fused_decode import decode_plan
+from repro_torch.kernels.paged_attention import MAX_RUNS as RUNS_CAP
+from repro_torch.kernels.paged_attention import run_plan
 from repro_torch.kernels.verify_attention import (KV_TILE, MAX_RUNS,
                                                   TAG_GROUP, split_plan)
 
@@ -51,6 +62,122 @@ def test_split_plan_fills_the_card_at_the_dense_path_shape():
     bq, per_run, runs = split_plan(30, 1, 32, 542, sms=132)
     assert per_run == TAG_GROUP and runs == 5
     assert -(-30 // bq) * 32 * runs >= 2 * 132
+
+
+SMEM_PER_CTA = 227 * 1024
+
+
+def _align16(n):
+    return -(-n // 16) * 16
+
+
+def _pipeline_smem(rows, D, kv_bytes, wpt, stages):
+    """Dynamic shared memory of the stages (or of the teams' merge buffer,
+    which reuses them): csrc/tile_pipeline.cuh, ``stages_smem``."""
+    teams = build.WARPS // wpt
+    return max(teams * stages * build.stage_bytes(D, kv_bytes),
+               4 * teams * rows * (D + 2))
+
+
+def _check_pipeline(rows, D, kv_bytes, wpt, stages, extra):
+    assert wpt in (1, 2, 4) and rows <= build.ROWS_PER_WARP * wpt
+    assert 1 <= stages <= build.MAX_STAGES
+    teams = build.WARPS // wpt
+    assert (stages == 1 or teams * stages * build.stage_bytes(D, kv_bytes)
+            <= build.STAGE_BUDGET)
+    assert extra + _pipeline_smem(rows, D, kv_bytes, wpt, stages) \
+        <= SMEM_PER_CTA
+
+
+ENTRIES = [1, 2, 15, 16, 17, 31, 63, 64, 65, 255, 1000, 4095, 4096]
+RUN_GEOMETRIES = [(1, 1, 32), (30, 1, 32), (192, 1, 32), (30, 6, 8),
+                  (7, 8, 8), (192, 8, 8), (192, 6, 1)]
+
+
+@pytest.mark.parametrize("Tq,G,Kh", RUN_GEOMETRIES)
+@pytest.mark.parametrize("M", ENTRIES)
+def test_run_plan_covers_every_entry_once(Tq, G, Kh, M):
+    bq, per_run, runs, wpt, stages = run_plan(Tq, G, Kh, M, 16, 128, 2,
+                                              sms=132)
+    covered = [e for z in range(runs)
+               for e in range(z * per_run, min(M, (z + 1) * per_run))]
+    assert covered == list(range(M))
+    assert all(z * per_run < M for z in range(runs)), "an empty run"
+    assert 1 <= runs <= RUNS_CAP
+    # CUDA: grid x < 2^31, y and z <= 65535; a CTA holds <= 16 rows
+    assert 1 <= bq and bq * G <= build.MAX_ROWS
+    assert -(-Tq // bq) < 2**31 and Kh <= 65535 and runs <= 65535
+    # shared memory: the run's lists (entry, block, owner) and the queries
+    _check_pipeline(bq * G, 128, 2, wpt, stages,
+                    3 * _align16(4 * per_run) + _align16(4 * bq * G * 128))
+
+
+def test_run_plan_without_entries_writes_zeros_in_one_run():
+    bq, per_run, runs, _, _ = run_plan(30, 1, 32, 0, 16, 128, 2, sms=132)
+    assert runs == 1 and per_run >= 1
+
+
+def test_run_plan_fills_the_card_at_the_ops_path_shape():
+    """q (30, 32, 128) over 16 entries of 16 slots: about two CTAs per SM,
+    one run per (query tile, head) -- no partials, no merge -- and one row
+    per warp, the tiles streamed through more than one stage."""
+    bq, per_run, runs, wpt, stages = run_plan(30, 1, 32, 16, 16, 128, 2,
+                                              sms=132)
+    ctas = -(-30 // bq) * 32 * runs
+    assert 1.5 * 132 <= ctas <= 2.5 * 132
+    assert runs == 1 and per_run == 16
+    assert bq * 1 == wpt == build.WARPS and stages >= 2
+
+
+def test_run_plan_splits_long_lists_into_runs():
+    """4096 entries (65536 slots): runs of at most MAX_RUN_SLOTS slots up
+    to the cap on runs, so no CTA walks the whole list alone."""
+    _, per_run, runs, _, _ = run_plan(30, 1, 32, 4096, 16, 128, 2, sms=132)
+    assert runs == RUNS_CAP and per_run * runs >= 4096
+
+
+DECODE_GEOMETRIES = [  # B, T, G, Kh, NB, bs
+    (6, 1, 1, 12, 16, 16), (6, 5, 1, 16, 16, 16), (1, 1, 1, 16, 64, 16),
+    (6, 1, 1, 16, 8, 32), (6, 1, 1, 16, 32, 8), (1, 64, 1, 32, 8, 16),
+    (6, 5, 1, 32, 16, 16), (6, 2, 6, 8, 16, 16), (6, 1, 6, 8, 16, 16),
+    (1, 1, 1, 1, 1, 16), (64, 1, 1, 16, 4096, 16), (6, 5, 2, 8, 16, 16)]
+
+
+@pytest.mark.parametrize("D,kv_bytes", [(64, 2), (96, 2), (128, 4),
+                                        (128, 1)])
+@pytest.mark.parametrize("B,T,G,Kh,NB,bs", DECODE_GEOMETRIES)
+def test_decode_plan_layouts(B, T, G, Kh, NB, bs, D, kv_bytes):
+    bq, wpt, stages = decode_plan(B, T, G, Kh, NB, bs, D, kv_bytes, sms=132)
+    assert bq == build.query_tile(T, G, B * Kh, 132)
+    rows = bq * G
+    assert 1 <= rows <= build.MAX_ROWS
+    assert B < 2**31 and Kh <= 65535 and -(-T // bq) <= 65535
+    if rows >= build.WARPS:              # the row layout, as before
+        assert wpt == stages == 0
+    else:                                # the split layout
+        _check_pipeline(rows, D, kv_bytes, wpt, stages,
+                        _align16(4 * NB) + _align16(4 * rows * D))
+        assert wpt >= rows, "a warp scores one row"
+
+
+def test_decode_plan_splits_the_draft_step_over_every_warp():
+    """A LLaMA-68M draft step (B 6, T 1, 12 heads, 16 blocks of 16): one
+    row per CTA, four teams of one warp, two stages each (8 tiles)."""
+    assert decode_plan(6, 1, 1, 12, 16, 16, 64, 2, sms=132) == (1, 1, 2)
+    # the catch-up's 480 CTAs are resident at once only at one stage
+    assert decode_plan(6, 5, 1, 16, 16, 16, 96, 2, sms=132) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("D,kv_bytes", [(64, 2), (96, 2), (128, 2),
+                                        (128, 4), (96, 1), (36, 2)])
+def test_stage_layout_pads_k_rows_to_odd_chunks(D, kv_bytes):
+    """32 K rows padded to an odd number of 16-byte chunks (eight lanes'
+    16-byte reads fall on distinct banks), 32 V rows in whole chunks, six
+    32-word tag arrays."""
+    chunks = -(-D * kv_bytes // 16)
+    k_row = (build.stage_bytes(D, kv_bytes) - 6 * 32 * 4) // 32 - 16 * chunks
+    assert k_row % 16 == 0 and (k_row // 16) % 2 == 1
+    assert chunks <= k_row // 16 <= chunks + 1
 
 
 @pytest.mark.parametrize("D", MMA_HEAD_DIMS)

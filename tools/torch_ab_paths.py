@@ -13,18 +13,24 @@ The optional third argument picks the layouts (default both).
 
 Kernel mode: saved inputs, timed with the kernels of the tree at <root>.
 
-    python3 tools/torch_ab_paths.py <root> prepare <inputs.pt>
+    python3 tools/torch_ab_paths.py <root> prepare <inputs.pt> [parts]
     python3 tools/torch_ab_paths.py <root> <label> kernels <inputs.pt>
 
 ``prepare`` (run it with the tree that has ``chip_smoke.py``) saves
-``chip_smoke``'s path inputs: layer 0's q/k/v of LLaMA-7B (S 2048) and of
-mixtral-8x22b (S 6144, window 4096) for ``flash_attention``, and the
-largest ``verify_attention`` call of the dense LLaMA-7B serving path.
-``kernels`` times ``flash_attention`` and ``verify_attention`` of the tree
-at <root> on them: the median of 15 individually timed calls, the L2
-cache flushed before each, with the device held busy while the host
-enqueues them (``chip_smoke.Timer``'s method), and each output's largest
-difference from the plain version.  Prints ``ABK {json}``.
+``chip_smoke``'s inputs of the parts named (comma-separated; default
+``flash,dense,paged``): ``flash`` layer 0's q/k/v of LLaMA-7B (S 2048) and
+of mixtral-8x22b (S 6144, window 4096) for ``flash_attention``; ``dense``
+the largest ``verify_attention`` call of the dense LLaMA-7B serving path;
+``paged`` the largest ``fused_paged_decode`` call of the paged LLaMA-7B
+serving path and its largest ``fused_paged_verify`` call (the ops path's
+``paged_verify_attention`` input), with every check shape of
+``fused_paged_decode`` and ``paged_verify_attention`` from
+``chip_smoke.kernel_check_cases``.  ``kernels`` builds the kernels those
+inputs need and times each on them with the tree at <root>: the median of
+15 individually timed calls, the L2 cache flushed before each, with the
+device held busy while the host enqueues them (``chip_smoke.Timer``'s
+method), and each output's largest difference from the plain version.
+Prints ``ABK {json}``.
 
 Compare two trees in one call, in turns: unpack the other tree (e.g.
 ``git archive``) into an ignored directory and run parent, change,
@@ -50,27 +56,59 @@ if not sd.__file__.startswith(root):
     sys.exit(f"imported {sd.__file__}, not the tree under {root}")
 
 
-def prepare(path):
+# kernel name -> (module, source under csrc/)
+KERNEL_MODULES = {
+    "flash_attention": ("flash_attention", "flash_attention"),
+    "verify_attention": ("verify_attention", "verify_attention"),
+    "fused_paged_decode": ("fused_decode", "fused_decode"),
+    "paged_verify_attention": ("paged_attention", "paged_attention"),
+}
+
+
+def prepare(path, parts):
+    """Save {case: {"kernel": name, "args": inputs}} for ``kernels``."""
     sys.path.insert(0, root)
     import chip_smoke as cs
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
 
-    llm, ssms = cs.full_zoo("bfloat16")
-    with cs.Tap(ops, "verify_attention") as tap:
-        cs.serve(llm, ssms, 6, 0.3, capacity=6, kv_layout="dense",
-                 fused_kernels="off")
-    saved = {"verify_attention": tap.best,
-             "flash llama-7b": cs.layer0_qkv(llm, 2048, seed=7)}
-    del llm, ssms
-    torch.cuda.empty_cache()
-    llm, _ = cs.full_zoo("bfloat16", cs.MIXTRAL_LAYERS,
-                         llm_cfg=registry.get("mixtral-8x22b"))
-    saved["flash mixtral-8x22b"] = cs.layer0_qkv(llm, 6144, seed=7)
-    for a in saved.values():
-        a.pop("model", None)
+    saved = {}
+    if "dense" in parts or "flash" in parts or "paged" in parts:
+        llm, ssms = cs.full_zoo("bfloat16")
+        if "dense" in parts:
+            with cs.Tap(ops, "verify_attention") as tap:
+                cs.serve(llm, ssms, 6, 0.3, capacity=6, kv_layout="dense",
+                         fused_kernels="off")
+            saved["verify_attention"] = dict(kernel="verify_attention",
+                                             args=tap.best)
+        if "paged" in parts:
+            with cs.Tap(ops, "fused_paged_verify") as tv, \
+                    cs.Tap(ops, "fused_paged_decode") as td:
+                cs.serve(llm, ssms, 6, 0.3, capacity=6)
+            saved["fused_paged_decode paged path"] = dict(
+                kernel="fused_paged_decode", args=td.best)
+            saved["paged_verify_attention ops path"] = dict(
+                kernel="paged_verify_attention", args=tv.best)
+            gen = torch.Generator().manual_seed(11)
+            for name, label, a in cs.kernel_check_cases(gen):
+                if name in ("fused_paged_decode", "paged_verify_attention"):
+                    saved[f"{name} check {label}"] = dict(kernel=name, args=a)
+        if "flash" in parts:
+            qkv = cs.layer0_qkv(llm, 2048, seed=7)
+            saved["flash llama-7b"] = dict(kernel="flash_attention",
+                                           args=qkv)
+        del llm, ssms
+        torch.cuda.empty_cache()
+    if "flash" in parts:
+        llm, _ = cs.full_zoo("bfloat16", cs.MIXTRAL_LAYERS,
+                             llm_cfg=registry.get("mixtral-8x22b"))
+        saved["flash mixtral-8x22b"] = dict(kernel="flash_attention",
+                                            args=cs.layer0_qkv(llm, 6144,
+                                                               seed=7))
+    for v in saved.values():
+        v["args"].pop("model", None)
     torch.save(saved, path)
-    print(f"saved {sorted(saved)} to {path}", flush=True)
+    print(f"saved {len(saved)} inputs to {path}", flush=True)
 
 
 def timed(fn, reps=15, spin_cycles=300_000_000):
@@ -100,18 +138,20 @@ def timed(fn, reps=15, spin_cycles=300_000_000):
 
 
 def kernels(path):
-    from repro_torch.kernels import flash_attention, verify_attention
+    import importlib
 
-    build.build_all(["flash_attention", "verify_attention"])
     saved = torch.load(path)
+    names = sorted({v["kernel"] for v in saved.values()})
+    build.build_all([KERNEL_MODULES[n][1] for n in names])
     out = {"label": label, "card": torch.cuda.get_device_name(0)}
-    for name, a in saved.items():
-        mod = verify_attention if name == "verify_attention" else \
-            flash_attention
-        kern = getattr(mod, mod.NAME)
-        plain = getattr(mod, mod.NAME + "_plain")
+    for case, v in saved.items():
+        mod = importlib.import_module("repro_torch.kernels."
+                                      + KERNEL_MODULES[v["kernel"]][0])
+        kern = getattr(mod, v["kernel"])
+        plain = getattr(mod, v["kernel"] + "_plain")
+        a = v["args"]
         err = (kern(**a).float() - plain(**a).float()).abs().max().item()
-        out[name] = dict(ms=timed(lambda: kern(**a)), max_abs_err=err,
+        out[case] = dict(ms=timed(lambda: kern(**a)), max_abs_err=err,
                          shape=list(a["q"].shape))
     print("ABK " + json.dumps(out), flush=True)
 
@@ -162,7 +202,8 @@ def serving(paths):
 
 
 if label == "prepare":
-    prepare(mode)
+    prepare(mode, (sys.argv[4] if len(sys.argv) > 4
+                   else "flash,dense,paged").split(","))
 elif mode == "kernels":
     kernels(sys.argv[4])
 else:
