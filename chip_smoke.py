@@ -8,8 +8,8 @@ script then exits non-zero without its last line.  Phases:
 
 1. the card (name, power limit, torch and CUDA versions);
 2. the build of every CUDA kernel under src/repro_torch/kernels/csrc (one
-   nvcc per source, in parallel), with ptxas' registers and spills (each
-   entry of the redesigned sources);
+   nvcc per source, in parallel), with ptxas' registers and spills of
+   every kernel entry;
 3. kernel checks: each kernel against its plain PyTorch version on the
    card, at the head geometries of the serving path (LLaMA-7B verify
    H=Kh=32 D=128; SSM decode H=12 D=64 and H=16 D=96), with bf16, int8, fp8
@@ -20,8 +20,10 @@ script then exits non-zero without its last line.  Phases:
    over 16 runs), padding cells, rows of length 0, cache lengths not a
    multiple of 32; for fused_paged_decode's split layout draft steps at B
    = 1 and 6 over rows of 0 to 64 blocks and block sizes 8 and 32; for
-   paged_verify_attention block lists in no order, of 1, 17 and 64
-   entries, block sizes 8 and 32);
+   fused_paged_verify and paged_verify_attention block lists in no order,
+   of 1, 17 and 64 entries, block sizes 8 and 32, and fused_paged_verify
+   at dbrx's GQA group 6; for decode_attention rows of 2048 to 8190 slots
+   at B = 1 and 4, split over runs of tiles and merged);
 4. the paged main path: the port's SpinEngine serving the mix workload with
    LLaMA-7B (32 layers, full width) and the SSMs LLaMA-68M/265M/616M at
    full width, random bf16 weights, paged bf16 KV, fused kernels on.  An
@@ -81,7 +83,9 @@ script then exits non-zero without its last line.  Phases:
    port never calls), each the median of individually timed launches with
    the L2 cache flushed before each; and the bound, the larger of the
    bytes over 3.35 TB/s and the operations over the peak rate of the input
-   type.
+   type.  ``fused_paged_verify`` and ``paged_verify_attention`` (the same
+   function) are timed on the same input, the paged path's largest
+   verify call, and printed side by side.
 
 The last three lines are the kernels JSON, the card line of
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and
@@ -153,9 +157,6 @@ SOURCES = {
 # (dbrx) that one card holds beside the SSMs, in bf16
 MIXTRAL_LAYERS, DBRX_LAYERS = 4, 2
 PAGED = [n for n, (_, _, path) in SOURCES.items() if path == "paged"]
-# sources whose every kernel entry chip_smoke's build log lists
-REDESIGNED = ("flash_attention", "verify_attention", "fused_decode",
-              "paged_attention")
 
 
 def log(*a):
@@ -589,6 +590,34 @@ def kernel_check_cases(gen):
                      f"llama-7b bs={bs} {kv} tree",
                      cases.verify_inputs(gen, lens7b, 4, 32, 32, 128, bs, kv,
                                          True, shuffle=True)))
+    # fused_paged_verify on the run-of-entries kernel: the same edge
+    # geometries, and dbrx's (H 48, Kh 8, G 6)
+    for kv, tree, n, bs in (
+            ("bf16", False, None, 16), ("int8", True, None, 16),
+            ("fp8", True, 17, 16), ("bf16", True, 1, 16),
+            ("int8", False, 17, 16), ("f32", False, 64, 16),
+            ("bf16", True, None, 8), ("fp8", False, None, 32)):
+        todo.append(("fused_paged_verify",
+                     f"llama-7b shuffled entries M={n or 'pow2'} bs={bs} "
+                     f"{kv} {'tree' if tree else 'linear'}",
+                     cases.verify_inputs(gen, lens7b, 4, 32, 32, 128, bs, kv,
+                                         tree, shuffle=True, n_entries=n)))
+    for kv, tree in (("bf16", False), ("int8", True), ("f32", True)):
+        todo.append(("fused_paged_verify",
+                     f"dbrx-132b G 6 {kv} {'tree' if tree else 'linear'}",
+                     cases.verify_inputs(gen, lens7b, 4, 48, 8, 128, 16, kv,
+                                         tree)))
+    # decode_attention over runs of tiles: long rows at B = 1 (LLaMA-7B's
+    # heads, GQA group 6 at Kh 8, float32) and unequal rows at B = 4
+    for kv, lens, S, H, Kh, tag in (
+            ("bf16", [4001], 4096, 32, 32, "llama-7b B=1"),
+            ("bf16", [8190], 8192, 48, 8, "GQA 6 Kh 8 B=1"),
+            ("f32", [1999], 2048, 32, 32, "llama-7b B=1"),
+            ("bf16", [0, 1, 700, 2048], 2048, 32, 32,
+             "llama-7b B=4 rows 0/1/700/2048")):
+        todo.append(("decode_attention", f"{tag} S={S} {kv}",
+                     cases.dense_decode_inputs(gen, lens, S, H, Kh, 128,
+                                               kv)))
     return todo
 
 
@@ -791,14 +820,11 @@ def phase_main_path(report):
     return line["launches"], captured, line["wall_ms_per_slot"], qkv
 
 
-def phase_dense_main_path(report, paged_ms_per_slot):
-    """The main path's zoo and workload on the dense KV layout: packed
-    verify through ``verify_attention`` on every LLM layer of every slot,
-    drafts and catch-up in plain PyTorch over the dense grids."""
-    llm, ssms = full_zoo("bfloat16")
-    log("dense main path: " + describe(llm, ssms,
-                                       "bf16 weights, dense bf16 KV"))
-    kw = dict(capacity=6, kv_layout="dense", fused_kernels="off")
+def dense_inputs(llm, ssms):
+    """One untimed dense-layout run of the workload; returns the largest
+    ``verify_attention`` call's inputs and phase 8's ``decode_attention``
+    input: the LLM's last layer of K/V as the run left it, each row with
+    the length its last request had, and a seeded random query."""
     evict, row_len = DenseCachePool.evict, {}
 
     def keep_length(pool, rid):
@@ -810,13 +836,11 @@ def phase_dense_main_path(report, paged_ms_per_slot):
     DenseCachePool.evict = keep_length
     try:
         with Tap(ops, "verify_attention") as tap:
-            eng, _, _ = serve(llm, ssms, 6, 0.3, **kw)
+            eng, _, _ = serve(llm, ssms, 6, 0.3, capacity=6,
+                              kv_layout="dense", fused_kernels="off")
     finally:
         DenseCachePool.evict = evict
     check(any(row_len.values()), "no dense LLM row was evicted")
-    captured = tap.best
-    # The LLM's last layer of K/V as the run left it, each row with the
-    # length its last request had: phase 8's decode_attention input.
     cache, top = eng.llm_pool.cache, llm.cfg.n_layers - 1
     B, _, Kh, D = cache["k"][top].shape
     grid = dict(
@@ -826,7 +850,18 @@ def phase_dense_main_path(report, paged_ms_per_slot):
         k=cache["k"][top].clone(), v=cache["v"][top].clone(),
         lengths=torch.tensor([row_len.get(b, 0) for b in range(B)],
                              dtype=torch.int32, device=cache["k"].device))
-    del eng, cache
+    return tap.best, grid
+
+
+def phase_dense_main_path(report, paged_ms_per_slot):
+    """The main path's zoo and workload on the dense KV layout: packed
+    verify through ``verify_attention`` on every LLM layer of every slot,
+    drafts and catch-up in plain PyTorch over the dense grids."""
+    llm, ssms = full_zoo("bfloat16")
+    log("dense main path: " + describe(llm, ssms,
+                                       "bf16 weights, dense bf16 KV"))
+    kw = dict(capacity=6, kv_layout="dense", fused_kernels="off")
+    captured, grid = dense_inputs(llm, ssms)
 
     def check_run(eng, stats, launches):
         verified = sum(1 for rec in eng.slot_log if rec.get("active"))
@@ -1185,11 +1220,10 @@ def main():
         log(f"  ptxas {n}: {len(entries)} entries, registers "
             f"{min(regs)}-{max(regs)}, spill bytes "
             f"{sum(e['spill_bytes'] for e in entries)}")
-        if n in REDESIGNED:
-            for e in entries:
-                log(f"    {e['entry']}: {e['registers']} registers, "
-                    f"{e['spill_bytes']} spill bytes, {e['static_smem']} "
-                    f"bytes static smem")
+        for e in entries:
+            log(f"    {e['entry']}: {e['registers']} registers, "
+                f"{e['spill_bytes']} spill bytes, {e['static_smem']} "
+                f"bytes static smem")
 
     timer = Timer()
 
@@ -1222,7 +1256,7 @@ def main():
               "flash_attention": {n: mixtral_qkv[n]
                                   for n in ("q", "k", "v", "window")}}
 
-    kernels = []
+    kernels, path_recs = [], {}
     for name, (source, replaces, path) in SOURCES.items():
         a = inputs[name]
         rec = measure(name, a, timer)
@@ -1242,6 +1276,12 @@ def main():
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
         report[f"{path}_path_inputs_{name}"] = dict(shape=shape_of(a), **rec)
+        path_recs[name] = rec
+    same = {n: path_recs[n] for n in ("fused_paged_verify",
+                                      "paged_verify_attention")}
+    log("same input (the paged path's largest verify call): "
+        + " ".join(f"{n} ms={r['ms']:.4f}" for n, r in same.items())
+        + f" library_ms={same['fused_paged_verify']['library_ms']:.4f}")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

@@ -26,7 +26,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -202,6 +202,22 @@ def tile_pipeline(rows: int, tiles: int, D: int, kv_bytes: int, ctas: int,
     stages = max(1, min(MAX_STAGES, need,
                         budget // (teams * stage_bytes(D, kv_bytes))))
     return wpt, stages
+
+
+# Per (device, stream): int32 counters of the split kernels' in-launch
+# merge (the last CTA of a group merges and resets its own counter to 0),
+# zero between calls; calls on one stream are ordered, so the kernels of
+# one stream share them.  Grown on demand.
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def merge_counters(device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index or 0, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return buf
 
 
 _SMS: Dict[int, int] = {}

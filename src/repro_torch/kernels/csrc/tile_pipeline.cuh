@@ -215,9 +215,16 @@ struct QRows {
   }
 };
 
+// A Map turns slot c of a CTA's slot list into its pool slot, its owner
+// word and its tree-node index, and says whether the slot has data.
+// kTags: the slots carry pool tags (segment, position; the paged kernels)
+// that issue_tile copies and score_tile tests; without them (the dense
+// decode) every slot of the list is attended.
+
 // Slot c of a decode row: logical block c / bs of the row's table (in
 // shared memory); a slot of an unallocated block (< 0) has no data.
 struct TableMap {
+  static constexpr bool kTags = true;
   const int* table;
   int bs;
   __device__ __forceinline__ bool operator()(int c, long long& slot,
@@ -234,6 +241,7 @@ struct TableMap {
 
 // Slot c of a verify run: live entry c / bs of the run's compacted list.
 struct RunMap {
+  static constexpr bool kTags = true;
   const int* ent;  // entry index in block_ids (for block_node)
   const int* blk;  // physical block
   const int* own;  // owning segment
@@ -246,6 +254,21 @@ struct RunMap {
     owner = own[e];
     slot = static_cast<long long>(blk[e]) * bs + s;
     node = static_cast<long long>(ent[e]) * bs + s;
+    return true;
+  }
+};
+
+// Slot c of a dense decode row: slot s0 + c of row b of a (B, S, Kh, D)
+// cache (the list is the row's live slots from s0), no tags.
+struct DenseMap {
+  static constexpr bool kTags = false;
+  long long s0;  // b * S + the run's first slot
+  __device__ __forceinline__ bool operator()(int c, long long& slot,
+                                             int& own,
+                                             long long& node) const {
+    own = 0;
+    node = 0;
+    slot = s0 + c;
     return true;
   }
 };
@@ -267,7 +290,8 @@ struct Pool {
 // Team threads tg in [0, 32 wpt) request tile `tile` of the slot list
 // (n_slots slots) into stage st: thread tg copies chunks tg / 32,
 // tg / 32 + wpt, ... of slot tg % 32's K and V rows; the team's first
-// warp also copies each slot's tags and writes its owner word.
+// warp also writes each slot's owner word and copies its tags
+// (Map::kTags).
 template <typename KT, bool kTree, class Map>
 __device__ __forceinline__ void issue_tile(const Stage& st, const Pool<KT>& p,
                                            const Map& map, int tile,
@@ -280,7 +304,7 @@ __device__ __forceinline__ void issue_tile(const Stage& st, const Pool<KT>& p,
   const bool ok = c < n_slots && map(c, slot, own, nidx);
   if (tg < kTile) {
     st.own[j] = ok ? own : -1;
-    if (ok) {
+    if (Map::kTags && ok) {
       cp4(st.seg + j, p.seg + slot);
       cp4(st.pos + j, p.pos + slot);
       if (kTree) cp4(st.node + j, p.node + nidx);
@@ -323,8 +347,9 @@ struct Rows {
 
 // Online-softmax update of this warp's rows with the tile in stage st.
 // kOwnerSeg: a slot's segment is its owner when its pool seg is >= 0
-// (verify); else the pool seg itself (decode).
-template <typename KT, bool kTree, bool kOwnerSeg, int RW>
+// (verify); else the pool seg itself (paged decode).  kTags false: every
+// slot with an owner word >= 0 is attended (dense decode).
+template <typename KT, bool kTree, bool kOwnerSeg, bool kTags, int RW>
 __device__ __forceinline__ void score_tile(const Stage& st, const float* sq,
                                            const Pool<KT>& p, int R, int k0,
                                            int wpt, Rows<RW>& w) {
@@ -333,7 +358,9 @@ __device__ __forceinline__ void score_tile(const Stage& st, const float* sq,
   const int D = p.D;
   const int own = st.own[lane];
   int kseg = -1, kpos = 0, knode = -1;
-  if (own >= 0) {
+  if (!kTags) {
+    kseg = own;  // 0, or -1 past the list
+  } else if (own >= 0) {
     const int raw = st.seg[lane];
     kseg = raw < 0 ? -1 : (kOwnerSeg ? own : raw);
     kpos = st.pos[lane];
@@ -344,7 +371,8 @@ __device__ __forceinline__ void score_tile(const Stage& st, const float* sq,
 #pragma unroll
   for (int rr = 0; rr < RW; ++rr) {
     const int r = k0 + wpt * rr;
-    bool o = r < R && kseg >= 0 && kseg == w.seg[rr] && kpos <= w.pos[rr];
+    bool o = r < R && kseg >= 0 &&
+             (!kTags || (kseg == w.seg[rr] && kpos <= w.pos[rr]));
     if (kTree && o)
       o = knode == -1 ||
           (knode >= 0 &&
@@ -499,7 +527,8 @@ __device__ __forceinline__ void walk_rest(const Walk& k, const Pool<KT>& p,
     wait_pending(k.stages - 1);
     team_sync(wpt, k.g);
     const Stage st = stage_at(k.mine + (i % k.stages) * k.sb, p.KS, p.VS);
-    score_tile<KT, kTree, kOwnerSeg, RW>(st, sq, p, R, k.k0, wpt, w);
+    score_tile<KT, kTree, kOwnerSeg, Map::kTags, RW>(st, sq, p, R, k.k0,
+                                                     wpt, w);
     team_sync(wpt, k.g);
     if (i + k.stages < k.n)
       issue_tile<KT, kTree>(st, p, map, k.g + (i + k.stages) * k.teams,

@@ -8,6 +8,8 @@
   over runs of block entries (:func:`run_plan`): one CTA per (query tile,
   kv head, run); with more than one run, each writes a partial and the
   last of a (tile, head) merges them, in the same launch.
+  :func:`verify_runs` launches that kernel (``csrc/verify_runs.cuh``) for
+  both wrappers.
 
 Both are public through ``kernels/ops.py``; the serving engine takes the
 fused kernels instead.  On a CPU tensor each wrapper runs its plain version;
@@ -18,7 +20,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple
 
 import torch
 
@@ -61,22 +62,8 @@ def run_plan(Tq: int, G: int, Kh: int, M: int, bs: int, D: int,
     return bq, per_run, runs, wpt, stages
 
 
-# Per (device, stream): int32 counters of the last-run merge, zero between
-# calls (the merging CTA resets its own); grown on demand.
-_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _counters(device, stream: int, n: int) -> torch.Tensor:
-    key = (device.index or 0, stream)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                           device=device)
-    return buf
-
-
-def _c_fn(name, n_ptr, n_int):
-    fn = getattr(build.load("paged_attention"), "spin_" + name)
+def _c_fn(source, name, n_ptr, n_int):
+    fn = getattr(build.load(source), "spin_" + name)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p] * n_ptr + [i] * n_int + [ctypes.c_float, p]
     fn.restype = i
@@ -101,7 +88,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
     build.check_int("lengths", lengths, (B,), q.device)
     out = torch.empty_like(q)
     ptr = build.ptr
-    rc = _c_fn(DECODE, 8, 8)(
+    rc = _c_fn("paged_attention", DECODE, 8, 8)(
         ptr(q), ptr(k_pool), ptr(v_pool), ptr(block_tables), ptr(lengths),
         ptr(k_scale), ptr(v_scale), ptr(out), B, H, Kh, D, bs, NB, q_code,
         kv_code, 1.0 / math.sqrt(D), build.stream_of(q))
@@ -122,6 +109,21 @@ def paged_verify_attention(q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
         return paged_verify_attention_plain(
             q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos, block_ids,
             block_owner, q_anc, block_node, k_scale, v_scale)
+    return verify_runs("paged_attention", VERIFY, q, k_pool, v_pool,
+                       pool_seg, pool_pos, q_seg, q_pos, block_ids,
+                       block_owner, q_anc, block_node, k_scale, v_scale)
+
+
+def verify_runs(source, name, q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
+                q_pos, block_ids, block_owner, q_anc, block_node, k_scale,
+                v_scale):
+    """One launch of the run-of-entries verify kernel
+    (``csrc/verify_runs.cuh``) through entry ``spin_<name>`` of
+    ``csrc/<source>.cu``: the argument checks, :func:`run_plan`, the
+    float32 partials (only with more than one run) and the merge counters
+    (:func:`build.merge_counters`); one count in :data:`build.LAUNCHES`
+    under ``name``.  Shared by this module's ``paged_verify_attention`` and
+    ``fused_verify.fused_paged_verify``; no host sync."""
     if (q_anc is None) != (block_node is None):
         raise ValueError("q_anc and block_node come together")
     Tq, H, D = q.shape
@@ -129,12 +131,12 @@ def paged_verify_attention(q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
     M = block_ids.shape[0]
     q_code, kv_code = build.check_pools(q, k_pool, v_pool, pool_seg,
                                         pool_pos, k_scale, v_scale)
-    for name, t, shape in (("q_seg", q_seg, (Tq,)), ("q_pos", q_pos, (Tq,)),
-                           ("q_anc", q_anc, (Tq,)),
-                           ("block_ids", block_ids, (M,)),
-                           ("block_owner", block_owner, (M,)),
-                           ("block_node", block_node, (M, bs))):
-        build.check_int(name, t, shape, q.device)
+    for arg, t, shape in (("q_seg", q_seg, (Tq,)), ("q_pos", q_pos, (Tq,)),
+                          ("q_anc", q_anc, (Tq,)),
+                          ("block_ids", block_ids, (M,)),
+                          ("block_owner", block_owner, (M,)),
+                          ("block_node", block_node, (M, bs))):
+        build.check_int(arg, t, shape, q.device)
     bq, per_run, runs, wpt, stages = run_plan(
         Tq, H // Kh, Kh, M, bs, D, k_pool.element_size(),
         build.sm_count(q.device))
@@ -145,16 +147,17 @@ def paged_verify_attention(q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
         pm = torch.empty((runs, Tq, H), **f32)
         pl = torch.empty((runs, Tq, H), **f32)
         pacc = torch.empty((runs, Tq, H, D), **f32)
-        counters = _counters(q.device, stream, -(-Tq // bq) * Kh)
+        counters = build.merge_counters(q.device, stream,
+                                        -(-Tq // bq) * Kh)
     out = torch.empty_like(q)
     ptr = build.ptr
-    rc = _c_fn(VERIFY, 18, 13)(
+    rc = _c_fn(source, name, 18, 13)(
         ptr(q), ptr(k_pool), ptr(v_pool), ptr(pool_seg), ptr(pool_pos),
         ptr(q_seg), ptr(q_pos), ptr(q_anc), ptr(block_ids), ptr(block_owner),
         ptr(block_node), ptr(k_scale), ptr(v_scale), ptr(pm), ptr(pl),
         ptr(pacc), ptr(counters), ptr(out), Tq, H, Kh, D, bs, M, bq,
         per_run, runs, wpt, stages, q_code, kv_code, 1.0 / math.sqrt(D),
         stream)
-    build.raise_on(rc, VERIFY)
-    build.LAUNCHES[VERIFY] += 1
+    build.raise_on(rc, name)
+    build.LAUNCHES[name] += 1
     return out

@@ -158,6 +158,23 @@ def test_decode_attention_matches_reference(dt, H, Kh, D):
     assert not got[0].float().abs().any()
 
 
+def test_decode_attention_rows_over_several_tiles():
+    """S = 96 over bk = 16 (six tiles, three of the kernel's 32-slot
+    tiles), GQA group 3, rows of unequal lengths ending inside, at and
+    past tile edges, one of them empty."""
+    rng = np.random.default_rng(31)
+    B, S, H, Kh, D = 5, 96, 6, 2, 32
+    lengths = [96, 0, 33, 64, 17]
+    jq, tq = both(rng.standard_normal((B, H, D)))
+    jk, tk = both(rng.standard_normal((B, S, Kh, D)))
+    jv, tv = both(rng.standard_normal((B, S, Kh, D)))
+    jl, tl = ints(lengths)
+    want = jops.decode_attention(jq, jk, jv, jl, bk=16, interpret=True)
+    got = ops.decode_attention(tq, tk, tv, tl, bk=16)
+    check(got, want)
+    assert not got[1].float().abs().any()
+
+
 def test_decode_attention_rejects_unaligned_bk():
     """An explicit bk must divide S, in the port as in the reference."""
     rng = np.random.default_rng(0)

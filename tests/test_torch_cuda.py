@@ -48,6 +48,21 @@ def test_fused_verify_matches_plain(gen, kv, tree, G):
            "fused_paged_verify", a)
 
 
+# the run-of-entries kernel's edge geometries: block lists in no order
+# (owners shuffled, padding entries among them) of 1, 17 and 64 entries,
+# block sizes 8 and 32, and the dbrx geometry (H 48, Kh 8, G 6)
+@pytest.mark.parametrize("kv,tree,n,bs,H,Kh", [
+    ("bf16", False, 1, 16, 32, 32), ("int8", True, 17, 16, 32, 32),
+    ("fp8", True, 64, 16, 32, 32), ("bf16", True, None, 8, 32, 32),
+    ("int8", False, None, 32, 32, 32), ("f32", True, 17, 16, 32, 32),
+    ("bf16", False, None, 16, 48, 8), ("f32", True, None, 16, 48, 8)])
+def test_fused_verify_shuffled_entries(gen, kv, tree, n, bs, H, Kh):
+    a = cases.verify_inputs(gen, [37, 180, 95, 12, 230, 61], 4, H, Kh, 128,
+                            bs, kv, tree, shuffle=True, n_entries=n)
+    _check(fused_paged_verify, fused_paged_verify_plain,
+           "fused_paged_verify", a)
+
+
 @pytest.mark.parametrize("kv,T,G", [
     ("f32", 5, 1), ("bf16", 1, 2), ("int8", 64, 1), ("fp8", 3, 4)])
 def test_fused_decode_matches_plain(gen, kv, T, G):
@@ -106,6 +121,18 @@ def test_verify_attention_split_kv(gen, kv, tree, H, Kh, D):
 def test_decode_attention_matches_plain(gen, kv, H, Kh, D):
     a = cases.dense_decode_inputs(gen, [0, 37, 250, 131, 1], 250, H, Kh, D,
                                   kv)
+    _check(decode_attention, decode_attention_plain, "decode_attention", a)
+
+
+# rows split over runs of tiles: long rows at B = 1 (LLaMA-7B's heads,
+# GQA group 6 at Kh 8, float32), and unequal rows whose runs past the
+# length exit (0, 1, 700 and 2048 live slots)
+@pytest.mark.parametrize("kv,lens,S,H,Kh", [
+    ("bf16", [4001], 4096, 32, 32), ("bf16", [8190], 8192, 48, 8),
+    ("f32", [1999], 2048, 32, 32), ("bf16", [0, 1, 700, 2048], 2048, 32, 32),
+    ("f32", [0, 1, 700, 2048], 2048, 16, 4)])
+def test_decode_attention_long_rows(gen, kv, lens, S, H, Kh):
+    a = cases.dense_decode_inputs(gen, lens, S, H, Kh, 128, kv)
     _check(decode_attention, decode_attention_plain, "decode_attention", a)
 
 

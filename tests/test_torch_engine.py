@@ -1,7 +1,8 @@
 """The whole slice on the CPU: the port's SpinEngine against the JAX
 SpinEngine on the same workload, seeds and (bridged) weights, with
 ``fused_kernels="on"`` — the JAX engine runs its Pallas kernels in
-interpret mode, the port its kernels' plain versions.  Emitted tokens and
+interpret mode, the port its kernels' plain versions — and ``"off"`` (the
+gather path), with bf16, int8 and fp8 KV.  Emitted tokens and
 the sim-clock bookkeeping must be identical; every request must also match
 the port's plain greedy decoding (losslessness)."""
 
@@ -60,8 +61,8 @@ def zoo():
 
 
 def _engine_cfg(cls, **kw):
-    return cls(gamma=3, max_len=128, capacity=4, packed_bucket=128,
-               straggler_mitigation=False, fused_kernels="on", **kw)
+    return cls(**dict(gamma=3, max_len=128, capacity=4, packed_bucket=128,
+                      straggler_mitigation=False, fused_kernels="on") | kw)
 
 
 def greedy_reference(llm, prompt, n_new):
@@ -86,7 +87,11 @@ CASES = [dict(spec_shape=shape, kv_dtype=kv) for shape in ("linear", "tree")
          for kv in ("bf16", "int8")] + [
     # chunked prefill appends + padded (unpacked) verify, both through the
     # decode kernel's plain version
-    dict(prefill_chunk=8, use_packed_verify=False, kv_dtype="bf16")]
+    dict(prefill_chunk=8, use_packed_verify=False, kv_dtype="bf16")] + [
+    # the gather path (fused kernels off) of the same paged engine
+    dict(spec_shape=shape, kv_dtype=kv, fused_kernels="off")
+    for shape in ("linear", "tree") for kv in ("bf16", "int8")] + [
+    dict(spec_shape="linear", kv_dtype="fp8")]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(

@@ -7,6 +7,13 @@
   cover every block entry exactly once, leave no run empty, stay inside
   CUDA's grid limits and shared memory, and fill the card at the ops
   path's shape;
+* ``fused_verify.fused_paged_verify`` sizes and launches its call as
+  ``paged_verify_attention`` does (the same ``run_plan``, the shared
+  run-of-entries kernel) at the serving path's two geometries;
+* ``decode_attention.run_plan``: the runs of the dense decode cover every
+  32-slot tile of a row once (and, by the kernel's rule, every live slot
+  once; a row of length 0 is one empty run), fill the card at a long row
+  and a small batch, and respect the run cap and shared memory;
 * ``fused_decode.decode_plan`` and ``build.tile_pipeline``: the split
   layout exactly where a CTA has fewer query rows than warps, at most four
   rows a warp, stages within their byte budget, and the stage layout of
@@ -28,9 +35,13 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro.kernels.verify_attention import verify_attention as j_verify
-from repro_torch.kernels import build, cases, ops
+import collections
+
+from repro_torch.kernels import build, cases, decode_attention, ops
+from repro_torch.kernels import paged_attention
 from repro_torch.kernels.flash_attention import MMA_HEAD_DIMS, route
 from repro_torch.kernels.fused_decode import decode_plan
+from repro_torch.kernels.fused_verify import fused_paged_verify
 from repro_torch.kernels.paged_attention import MAX_RUNS as RUNS_CAP
 from repro_torch.kernels.paged_attention import run_plan
 from repro_torch.kernels.verify_attention import (KV_TILE, MAX_RUNS,
@@ -134,6 +145,127 @@ def test_run_plan_splits_long_lists_into_runs():
     to the cap on runs, so no CTA walks the whole list alone."""
     _, per_run, runs, _, _ = run_plan(30, 1, 32, 4096, 16, 128, 2, sms=132)
     assert runs == RUNS_CAP and per_run * runs >= 4096
+
+
+def test_fused_verify_sizes_its_call_as_paged_verify(monkeypatch):
+    """At the paged path's two verify geometries (LLaMA-7B q (30, 32, 128),
+    dbrx q (30, 48, 128) over a Kh 8 pool; 16 entries of 16 slots) both
+    wrappers take the same plan, launch the same kernel arguments through
+    their own entries (``fused_verify.cu``, ``paged_attention.cu``) and
+    count one launch each under their own names.  The card's pieces are
+    stubbed: meta tensors carry the shapes."""
+    plans, calls = [], []
+    real = paged_attention.run_plan
+
+    def plan(*a):
+        plans.append(real(*a))
+        return plans[-1]
+
+    def c_fn(source, name, n_ptr, n_int):
+        return lambda *args: calls.append((source, name, args[n_ptr:])) or 0
+
+    monkeypatch.setattr(paged_attention, "run_plan", plan)
+    monkeypatch.setattr(paged_attention, "_c_fn", c_fn)
+    monkeypatch.setattr(build, "check_pools", lambda *a: (1, 1))
+    monkeypatch.setattr(build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(build, "ptr", lambda t: None)
+    monkeypatch.setattr(build, "LAUNCHES", collections.Counter())
+    meta = dict(device="meta")
+    for H, Kh in ((32, 32), (48, 8)):
+        i32 = dict(dtype=torch.int32, **meta)
+        a = dict(q=torch.empty(30, H, 128, dtype=torch.bfloat16, **meta),
+                 k_pool=torch.empty(96, 16, Kh, 128, dtype=torch.bfloat16,
+                                    **meta),
+                 pool_seg=torch.empty(96, 16, **i32),
+                 pool_pos=torch.empty(96, 16, **i32),
+                 q_seg=torch.empty(30, **i32), q_pos=torch.empty(30, **i32),
+                 block_ids=torch.empty(16, **i32),
+                 block_owner=torch.empty(16, **i32))
+        a["v_pool"] = a["k_pool"]
+        fused_paged_verify(**a)
+        paged_attention.paged_verify_attention(**a)
+    assert plans[0] == plans[1] and plans[2] == plans[3]
+    # LLaMA-7B: four tokens a CTA, one row a warp, one run (no merge);
+    # dbrx: one token (six rows over four warps), one run
+    assert plans[0][:3] == (4, 16, 1) and plans[0][3] == build.WARPS
+    assert plans[2][:3] == (1, 16, 1)
+    assert [c[:2] for c in calls] == [
+        ("fused_verify", "fused_paged_verify"),
+        ("paged_attention", "paged_verify_attention")] * 2
+    assert calls[0][2] == calls[1][2] and calls[2][2] == calls[3][2]
+    assert build.LAUNCHES == {"fused_paged_verify": 2,
+                              "paged_verify_attention": 2}
+
+
+DENSE_GEOMETRIES = [  # B, G, Kh, D, kv bytes
+    (6, 1, 32, 128, 2), (6, 1, 32, 128, 4), (1, 6, 8, 128, 2),
+    (1, 1, 32, 128, 2), (6, 4, 4, 96, 4), (6, 1, 12, 64, 2),
+    (1, 2, 8, 128, 2), (1, 3, 4, 64, 4), (64, 8, 8, 128, 2),
+    (3, 1, 7, 96, 2), (1, 16, 1, 128, 4)]
+DENSE_S = [0, 1, 31, 32, 33, 250, 256, 2048, 4096, 8192, 100_000]
+
+
+def _live_runs(length, S, per_run):
+    """The runs of a row that do work, and the slots each reads: the
+    kernel's rule (csrc/decode_attention.cu), the live prefix min(length,
+    S) cut at run_slots = 32 per_run; a row of length 0 is one run of no
+    slot."""
+    live = min(max(length, 0), S)
+    run_slots = per_run * build.KV_TILE
+    n = max(1, -(-live // run_slots))
+    return [range(z * run_slots, min(live, (z + 1) * run_slots))
+            for z in range(n)]
+
+
+@pytest.mark.parametrize("B,G,Kh,D,kv_bytes", DENSE_GEOMETRIES)
+@pytest.mark.parametrize("S", DENSE_S)
+def test_dense_decode_plan_covers_every_tile_once(B, G, Kh, D, kv_bytes, S):
+    per_run, runs, wpt, stages = decode_attention.run_plan(
+        B, S, G, Kh, D, kv_bytes, sms=132)
+    tiles = -(-S // build.KV_TILE)
+    covered = [t for z in range(runs)
+               for t in range(z * per_run, min(tiles, (z + 1) * per_run))]
+    assert covered == list(range(tiles))
+    assert all(z * per_run < max(tiles, 1) for z in range(runs)), \
+        "an empty run"
+    assert 1 <= runs <= decode_attention.MAX_RUNS
+    # CUDA: grid y and z <= 65535; shared memory: the queries and stages
+    assert Kh <= 65535 and runs <= 65535
+    _check_pipeline(G, D, kv_bytes, wpt, stages, _align16(4 * G * D))
+    # every live slot of a row of any length lies in exactly one live run
+    for length in {0, 1, S // 3, S - 1, S, S + 5}:
+        spans = _live_runs(length, S, per_run)
+        assert len(spans) <= runs
+        assert [s for r in spans for s in r] == list(range(min(max(length, 0),
+                                                                S)))
+
+
+def test_dense_decode_row_of_length_zero_is_one_empty_run():
+    per_run, runs, _, _ = decode_attention.run_plan(6, 256, 1, 32, 128, 2,
+                                                    sms=132)
+    assert [list(r) for r in _live_runs(0, 256, per_run)] == [[]]
+    per_run, runs, _, _ = decode_attention.run_plan(1, 0, 1, 8, 64, 2,
+                                                    sms=132)
+    assert runs == 1 and _live_runs(0, 0, per_run) == [range(0)]
+
+
+@pytest.mark.parametrize("G,Kh", [(6, 8), (1, 8), (1, 32)])
+def test_dense_decode_plan_fills_the_card_at_a_long_row(G, Kh):
+    """B 1, S 8192: at least one CTA per SM, at most MAX_RUNS runs."""
+    per_run, runs, _, _ = decode_attention.run_plan(1, 8192, G, Kh, 128, 2,
+                                                    sms=132)
+    assert Kh * runs >= 132
+    assert runs <= decode_attention.MAX_RUNS
+
+
+def test_dense_decode_plan_keeps_a_short_grid_whole():
+    """The ops path's q (6, 32, 128) over a (6, 256, 32, 128) grid: one run
+    per (row, kv head) -- no partials, no merge -- its tiles dealt to four
+    teams of one warp."""
+    per_run, runs, wpt, _ = decode_attention.run_plan(6, 256, 1, 32, 128, 2,
+                                                      sms=132)
+    assert runs == 1 and per_run == 8 and wpt == 1
 
 
 DECODE_GEOMETRIES = [  # B, T, G, Kh, NB, bs

@@ -18,18 +18,24 @@ Kernel mode: saved inputs, timed with the kernels of the tree at <root>.
 
 ``prepare`` (run it with the tree that has ``chip_smoke.py``) saves
 ``chip_smoke``'s inputs of the parts named (comma-separated; default
-``flash,dense,paged``): ``flash`` layer 0's q/k/v of LLaMA-7B (S 2048) and
-of mixtral-8x22b (S 6144, window 4096) for ``flash_attention``; ``dense``
-the largest ``verify_attention`` call of the dense LLaMA-7B serving path;
-``paged`` the largest ``fused_paged_decode`` call of the paged LLaMA-7B
-serving path and its largest ``fused_paged_verify`` call (the ops path's
-``paged_verify_attention`` input), with every check shape of
-``fused_paged_decode`` and ``paged_verify_attention`` from
-``chip_smoke.kernel_check_cases``.  ``kernels`` builds the kernels those
-inputs need and times each on them with the tree at <root>: the median of
-15 individually timed calls, the L2 cache flushed before each, with the
-device held busy while the host enqueues them (``chip_smoke.Timer``'s
-method), and each output's largest difference from the plain version.
+``flash,dense,paged,decode``): ``flash`` layer 0's q/k/v of LLaMA-7B (S
+2048) and of mixtral-8x22b (S 6144, window 4096) for ``flash_attention``;
+``dense`` the largest ``verify_attention`` call of the dense LLaMA-7B
+serving path and every check shape of ``verify_attention``; ``paged`` the
+largest ``fused_paged_decode`` call of the paged LLaMA-7B serving path and
+its largest verify call, for ``fused_paged_verify`` and for
+``paged_verify_attention`` (the ops path's input), the largest
+``fused_paged_verify`` call of the dbrx-132b paged path (2 layers, G 6),
+and every check shape of ``fused_paged_decode``, ``fused_paged_verify``
+and ``paged_verify_attention``; ``decode`` the ops path's
+``decode_attention`` input (the dense LLaMA-7B serving path's last-layer
+K/V grid) and every check shape of ``decode_attention``.  The check
+shapes come from ``chip_smoke.kernel_check_cases``.  ``kernels`` builds
+the kernels those inputs need and times each on them with the tree at
+<root>: the median of 15 individually timed calls, the L2 cache flushed
+before each, with the device held busy while the host enqueues them
+(``chip_smoke.Timer``'s method), and each output's largest difference
+from the plain version.
 Prints ``ABK {json}``.
 
 Compare two trees in one call, in turns: unpack the other tree (e.g.
@@ -59,6 +65,8 @@ if not sd.__file__.startswith(root):
 # kernel name -> (module, source under csrc/)
 KERNEL_MODULES = {
     "flash_attention": ("flash_attention", "flash_attention"),
+    "fused_paged_verify": ("fused_verify", "fused_verify"),
+    "decode_attention": ("decode_attention", "decode_attention"),
     "verify_attention": ("verify_attention", "verify_attention"),
     "fused_paged_decode": ("fused_decode", "fused_decode"),
     "paged_verify_attention": ("paged_attention", "paged_attention"),
@@ -73,26 +81,35 @@ def prepare(path, parts):
     from repro_torch.kernels import ops
 
     saved = {}
-    if "dense" in parts or "flash" in parts or "paged" in parts:
+    checks = {"dense": ("verify_attention",),
+              "paged": ("fused_paged_decode", "fused_paged_verify",
+                        "paged_verify_attention"),
+              "decode": ("decode_attention",)}
+    wanted = {n for p in parts for n in checks.get(p, ())}
+    gen = torch.Generator().manual_seed(11)
+    for name, label, a in cs.kernel_check_cases(gen):
+        if name in wanted:
+            saved[f"{name} check {label}"] = dict(kernel=name, args=a)
+    if {"dense", "flash", "paged", "decode"} & set(parts):
         llm, ssms = cs.full_zoo("bfloat16")
-        if "dense" in parts:
-            with cs.Tap(ops, "verify_attention") as tap:
-                cs.serve(llm, ssms, 6, 0.3, capacity=6, kv_layout="dense",
-                         fused_kernels="off")
-            saved["verify_attention"] = dict(kernel="verify_attention",
-                                             args=tap.best)
+        if "dense" in parts or "decode" in parts:
+            verify, grid = cs.dense_inputs(llm, ssms)
+            if "dense" in parts:
+                saved["verify_attention"] = dict(kernel="verify_attention",
+                                                 args=verify)
+            if "decode" in parts:
+                saved["decode_attention ops path"] = dict(
+                    kernel="decode_attention", args=grid)
         if "paged" in parts:
             with cs.Tap(ops, "fused_paged_verify") as tv, \
                     cs.Tap(ops, "fused_paged_decode") as td:
                 cs.serve(llm, ssms, 6, 0.3, capacity=6)
             saved["fused_paged_decode paged path"] = dict(
                 kernel="fused_paged_decode", args=td.best)
+            saved["fused_paged_verify paged path"] = dict(
+                kernel="fused_paged_verify", args=tv.best)
             saved["paged_verify_attention ops path"] = dict(
                 kernel="paged_verify_attention", args=tv.best)
-            gen = torch.Generator().manual_seed(11)
-            for name, label, a in cs.kernel_check_cases(gen):
-                if name in ("fused_paged_decode", "paged_verify_attention"):
-                    saved[f"{name} check {label}"] = dict(kernel=name, args=a)
         if "flash" in parts:
             qkv = cs.layer0_qkv(llm, 2048, seed=7)
             saved["flash llama-7b"] = dict(kernel="flash_attention",
@@ -105,6 +122,17 @@ def prepare(path, parts):
         saved["flash mixtral-8x22b"] = dict(kernel="flash_attention",
                                             args=cs.layer0_qkv(llm, 6144,
                                                                seed=7))
+        del llm
+        torch.cuda.empty_cache()
+    if "paged" in parts:
+        llm, ssms = cs.full_zoo("bfloat16", cs.DBRX_LAYERS,
+                                llm_cfg=registry.get("dbrx-132b"))
+        with cs.Tap(ops, "fused_paged_verify") as tv:
+            cs.serve(llm, ssms, 6, 0.3, capacity=6)
+        saved["fused_paged_verify dbrx path"] = dict(
+            kernel="fused_paged_verify", args=tv.best)
+        del llm, ssms
+        torch.cuda.empty_cache()
     for v in saved.values():
         v["args"].pop("model", None)
     torch.save(saved, path)
@@ -203,7 +231,7 @@ def serving(paths):
 
 if label == "prepare":
     prepare(mode, (sys.argv[4] if len(sys.argv) > 4
-                   else "flash,dense,paged").split(","))
+                   else "flash,dense,paged,decode").split(","))
 elif mode == "kernels":
     kernels(sys.argv[4])
 else:
