@@ -23,7 +23,10 @@ script then exits non-zero without its last line.  Phases:
    fused_paged_verify and paged_verify_attention block lists in no order,
    of 1, 17 and 64 entries, block sizes 8 and 32, and fused_paged_verify
    at dbrx's GQA group 6; for decode_attention rows of 2048 to 8190 slots
-   at B = 1 and 4, split over runs of tiles and merged);
+   at B = 1 and 4, split over runs of tiles and merged; for
+   paged_decode_attention the same long rows read through a block table,
+   unequal int8 rows, block sizes 8 (fp8) and 64 (bf16) with rows ending
+   mid-block and mid-tile, and LLaMA-616M's draft rows);
 4. the paged main path: the port's SpinEngine serving the mix workload with
    LLaMA-7B (32 layers, full width) and the SSMs LLaMA-68M/265M/616M at
    full width, random bf16 weights, paged bf16 KV, fused kernels on.  An
@@ -85,7 +88,9 @@ script then exits non-zero without its last line.  Phases:
    bytes over 3.35 TB/s and the operations over the peak rate of the input
    type.  ``fused_paged_verify`` and ``paged_verify_attention`` (the same
    function) are timed on the same input, the paged path's largest
-   verify call, and printed side by side.
+   verify call, and printed side by side; ``paged_decode_attention`` is
+   timed on its GQA 6, 8190-slot check beside ``decode_attention`` on the
+   same K/V content as a dense cache, on one ``same content`` line.
 
 The last three lines are the kernels JSON, the card line of
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and
@@ -153,6 +158,23 @@ SOURCES = {
     "flash_attention": (CSRC + "flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:23", "flash"),
 }
+# paged_decode_attention's checks of runs of tiles: (kv, lengths, H, Kh,
+# D, block size, label)
+PAGED_DECODE_ROWS = (
+    ("bf16", [4001], 32, 32, 128, 16, "llama-7b B=1 4001 slots"),
+    ("bf16", [8190], 48, 8, 128, 16, "GQA 6 Kh 8 B=1 8190 slots"),
+    ("f32", [1999], 32, 32, 128, 16, "llama-7b B=1 1999 slots"),
+    ("int8", [0, 1, 700, 2048], 32, 32, 128, 16,
+     "llama-7b B=4 rows 0/1/700/2048"),
+    ("fp8", [0, 37, 700, 2047], 32, 32, 128, 8,
+     "llama-7b bs=8 rows 0/37/700/2047"),
+    ("bf16", [63, 0, 700, 4095], 48, 8, 128, 64,
+     "GQA 6 Kh 8 bs=64 rows 63/0/700/4095"),
+    ("bf16", [0, 15, 47, 79, 1023, 20], 16, 16, 96, 16,
+     "llama-616m B=6 rows 0/15/47/79/1023/20"))
+# the check phase 13 also times beside decode_attention on the same K/V
+# content as a dense cache
+SAME_CONTENT = ("paged_decode_attention", "GQA 6 Kh 8 B=1 8190 slots bf16")
 # the MoE paths' depth cuts: layers of the published 56 (mixtral) and 40
 # (dbrx) that one card holds beside the SSMs, in bf16
 MIXTRAL_LAYERS, DBRX_LAYERS = 4, 2
@@ -618,12 +640,35 @@ def kernel_check_cases(gen):
         todo.append(("decode_attention", f"{tag} S={S} {kv}",
                      cases.dense_decode_inputs(gen, lens, S, H, Kh, 128,
                                                kv)))
+    # paged_decode_attention over runs of tiles: the same long rows read
+    # through a block table, unequal int8 rows, block sizes 8 and 64 (rows
+    # ending mid-block and mid-tile), and LLaMA-616M's draft rows
+    for kv, lens, H, Kh, D, bs, tag in PAGED_DECODE_ROWS:
+        todo.append(("paged_decode_attention", f"{tag} {kv}",
+                     cases.paged_decode_inputs(gen, lens, H, Kh, D, bs, kv)))
     return todo
 
 
 def phase_kernel_checks(timer, report):
-    run_checks(kernel_check_cases(torch.Generator().manual_seed(11)), timer,
-               report)
+    """Returns the inputs of the paged decode's G 6 long-row check
+    (:data:`SAME_CONTENT`) for phase 13."""
+    todo = kernel_check_cases(torch.Generator().manual_seed(11))
+    run_checks(todo, timer, report)
+    return next(a for name, label, a in todo
+                if (name, label) == SAME_CONTENT)
+
+
+def dense_of_paged(a):
+    """``decode_attention``'s inputs holding a paged decode's K/V content:
+    each row's blocks gathered into a (B, NB * bs, Kh, D) cache (bf16 or
+    float32 pools; entries < 0 read block 0, as the paged kernel does)."""
+    bt = a["block_tables"]
+    B, NB = bt.shape
+    bs = a["k_pool"].shape[1]
+    k, v = (a[n][bt.clamp(min=0).long()].reshape(B, NB * bs,
+                                                 *a[n].shape[2:])
+            .contiguous() for n in ("k_pool", "v_pool"))
+    return dict(q=a["q"], k=k, v=v, lengths=a["lengths"])
 
 
 def run_checks(todo, timer, report):
@@ -1143,22 +1188,26 @@ def phase_flash(report, timer, path_inputs):
     return launches
 
 
+def ops_paged_decode_input(a):
+    """``paged_decode_attention``'s inputs from a ``fused_paged_decode``
+    call: its first query token, each row at that token's length (at most
+    its allocated slots; an idle row 0)."""
+    bs = a["k_pool"].shape[1]
+    cells = (a["block_tables"] >= 0).sum(1, dtype=torch.int32) * bs
+    lengths = torch.where(a["q_seg"][:, 0] >= 0, a["q_pos"][:, 0] + 1, 0)
+    return dict(q=a["q"][:, 0].contiguous(), k_pool=a["k_pool"],
+                v_pool=a["v_pool"], block_tables=a["block_tables"],
+                lengths=torch.minimum(lengths, cells).to(torch.int32)
+                .contiguous(), k_scale=a["k_scale"], v_scale=a["v_scale"])
+
+
 def phase_ops_path(report, paged_verify, paged_decode, dense_grid):
     """The public kernel API of the three kernels no serving path runs,
     on the main paths' data (see the module docstring, phase 8).  Returns
     the launches and each kernel's inputs."""
-    a = paged_decode
-    B = a["q"].shape[0]
-    bs = a["k_pool"].shape[1]
-    cells = (a["block_tables"] >= 0).sum(1, dtype=torch.int32) * bs
-    lengths = torch.where(a["q_seg"][:, 0] >= 0, a["q_pos"][:, 0] + 1, 0)
     inputs = {
         "paged_verify_attention": paged_verify,
-        "paged_decode_attention": dict(
-            q=a["q"][:, 0].contiguous(), k_pool=a["k_pool"],
-            v_pool=a["v_pool"], block_tables=a["block_tables"],
-            lengths=torch.minimum(lengths, cells).to(torch.int32)
-            .contiguous(), k_scale=a["k_scale"], v_scale=a["v_scale"]),
+        "paged_decode_attention": ops_paged_decode_input(paged_decode),
         "decode_attention": dense_grid,
     }
     v = inputs["paged_verify_attention"]
@@ -1184,7 +1233,8 @@ def phase_ops_path(report, paged_verify, paged_decode, dense_grid):
     line = dict(launches=launches, shapes={n: shape_of(x)
                                            for n, x in inputs.items()},
                 paged_decode_lengths=d["lengths"].tolist(),
-                dense_decode_lengths=e["lengths"].tolist(), rows=B)
+                dense_decode_lengths=e["lengths"].tolist(),
+                rows=d["q"].shape[0])
     log("ops path (kernels/ops.py on the main paths' data) "
         + json.dumps(line))
     report["ops_path"] = line
@@ -1235,7 +1285,7 @@ def main():
         report.setdefault("phase_s", {})[phase.__name__] = dt
         return out
 
-    timed(phase_kernel_checks, timer, report)
+    same_content = timed(phase_kernel_checks, timer, report)
     paged_launches, captured, paged_ms, llama_qkv = timed(phase_main_path,
                                                           report)
     dense_launches, dense_captured, dense_grid = timed(
@@ -1282,6 +1332,20 @@ def main():
     log("same input (the paged path's largest verify call): "
         + " ".join(f"{n} ms={r['ms']:.4f}" for n, r in same.items())
         + f" library_ms={same['fused_paged_verify']['library_ms']:.4f}")
+    paged = measure("paged_decode_attention", same_content, timer)
+    dense = measure("decode_attention", dense_of_paged(same_content), timer)
+    check(paged["ok"] and dense["ok"], "the decode kernels disagree on the "
+          "same-content check")
+    report["same_content_decode"] = dict(paged_decode_attention=paged,
+                                         decode_attention=dense)
+    log(f"same content ([{SAME_CONTENT[1]}]; {paged['bytes']} bytes to "
+        f"move paged, {dense['bytes']} dense): "
+        f"paged_decode_attention ms={paged['ms']:.4f} bound_ms="
+        f"{paged['bound_ms']:.5f} ({paged['bound_by']}) share="
+        f"{paged['bound_ms'] / paged['ms']:.3f} library_ms="
+        f"{paged['library_ms']:.4f}; decode_attention over the gathered "
+        f"dense cache ms={dense['ms']:.4f} bound_ms={dense['bound_ms']:.5f} "
+        f"library_ms={dense['library_ms']:.4f}")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

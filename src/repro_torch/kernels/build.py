@@ -220,6 +220,21 @@ def merge_counters(device, stream: int, n: int) -> torch.Tensor:
     return buf
 
 
+def run_scratch(runs: int, rows: int, H: int, D: int, groups: int, device,
+                stream: int):
+    """(pm, pl, pacc, counters) of a split kernel's in-launch merge: the
+    float32 partials pm, pl (runs, rows, H) and pacc (runs, rows, H, D),
+    and :func:`merge_counters` for ``groups`` merging groups; four Nones
+    with one run (its CTAs write the output, nothing merges)."""
+    if runs == 1:
+        return None, None, None, None
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((runs, rows, H), **f32),
+            torch.empty((runs, rows, H), **f32),
+            torch.empty((runs, rows, H, D), **f32),
+            merge_counters(device, stream, groups))
+
+
 _SMS: Dict[int, int] = {}
 
 

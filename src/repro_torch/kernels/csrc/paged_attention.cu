@@ -12,147 +12,77 @@
 //
 // Both are public through kernels/ops.py; the serving engine takes the
 // fused kernels instead.  Both dequantize int8/fp8 blocks with the
-// per-(slot, head) scale (paged_common.cuh, verify_runs.cuh).
+// per-(slot, head) scale.
 //
 // What bounds them on the H100: the least time is the attended blocks' K/V
-// (plus scales and tags) read once over 3.35 TB/s -- a few multiply-adds
-// per K/V element against the ~295 operations per byte at which the
-// tensor cores would be the limit.  At serving lengths that is under a
-// microsecond; a call costs its chain of dependent memory round trips and
-// its idle lanes, not bytes or arithmetic.
+// (plus scales, tags and table entries) read once over 3.35 TB/s -- a few
+// multiply-adds per K/V element against the ~295 operations per byte at
+// which the tensor cores would be the limit.  At the ops path's short rows
+// that is under a microsecond, and a call costs its chain of dependent
+// memory round trips and its idle lanes; a long row at a small batch has
+// the bytes to fill the card only if many CTAs share it.
 //
 // What the designs do about it.
-// - decode: one CTA per (row, kv head) holds the GQA group's heads and
-//   walks the row's live logical blocks, j < ceil(lengths[b] / bs), each
-//   slot read once for all heads; the table's unallocated tail (< 0) and
-//   the slots past the length are never read.
+// - decode: dense decode_attention's run-of-tiles kernel (decode_runs.cuh)
+//   over the block pool (PagedRow): one launch over (row, kv head, run of
+//   32-slot tiles), sized by decode_attention.run_plan over NB * bs slots
+//   (the host knows no length); each live run copies its slice of the
+//   row's table into shared memory, streams its slots as 32-slot tiles
+//   whatever the block size, and the last live run of a row merges.  As in
+//   the reference, an unallocated entry (< 0) of the live prefix reads
+//   block 0, and the slots past the length are never read.
 // - verify: split over runs of block entries, one launch, the last run of
 //   a query tile merging; verify_runs.cuh (shared with fused_verify.cu)
 //   holds the kernel and its design.
-#include "paged_common.cuh"
+#include "decode_runs.cuh"
 #include "verify_runs.cuh"
-
-namespace spin {
-
-// ---------------------------------------------------------------- decode --
-
-template <typename QT, typename KT>
-__global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
-                        const KT* __restrict__ vp,
-                        const int* __restrict__ block_tables,
-                        const int* __restrict__ lengths,
-                        const float* __restrict__ ks,
-                        const float* __restrict__ vs, QT* __restrict__ out,
-                        int H, int Kh, int D, int bs, int NB, float scale) {
-  extern __shared__ float smem_raw[];
-  const int G = H / Kh;
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int rows = G;
-  const Smem sm = carve_smem(smem_raw, rows, D);
-  const long long qrow = static_cast<long long>(b) * H;
-
-  for (int e = threadIdx.x; e < rows * D; e += blockDim.x) {
-    const int r = e / D;
-    const int d = e - r * D;
-    sm.q[e] = to_f32(q[(qrow + h * G + r) * D + d]) * scale;
-  }
-  for (int j = threadIdx.x; j < kTile; j += blockDim.x) {
-    sm.seg[j] = 0;  // every loaded slot is below the length
-    sm.pos[j] = 0;
-    sm.node[j] = -1;
-  }
-  const int warp = threadIdx.x >> 5;
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDimPerLane];
-  int rseg[kRowsPerWarp], rpos[kRowsPerWarp], ranc[kRowsPerWarp];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    m[rr] = -CUDART_INF_F;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kDimPerLane; ++i) acc[rr][i] = 0.f;
-    rseg[rr] = 0;
-    rpos[rr] = 0;
-    ranc[rr] = -1;
-  }
-  const int len = max(lengths[b], 0);
-  const int live = min(NB, (len + bs - 1) / bs);
-  const int* table = block_tables + static_cast<long long>(b) * NB;
-  __syncthreads();
-
-  for (int j = 0; j < live; ++j) {
-    // the reference reads block max(id, 0) for every live logical block
-    const long long blk = max(table[j], 0);
-    const int valid = min(bs, len - j * bs);
-    for (int s0 = 0; s0 < valid; s0 += kTile) {
-      const int n = min(kTile, valid - s0);
-      load_kv_tile(sm, kp, vp, ks, vs, blk, s0, n, bs, Kh, h, D);
-      __syncthreads();
-      attend_tile<false>(sm, n, rows, D, m, l, acc, rseg, rpos, ranc);
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = warp + rr * kWarps;
-    if (r < rows)
-      store_row(out + (qrow + h * G + r) * D, D, l[rr], acc[rr]);
-  }
-}
-
-// ------------------------------------------------------------ dispatch --
-
-template <typename QT, typename KT>
-static void launch_decode(const void* q, const void* kp, const void* vp,
-                          const int* block_tables, const int* lengths,
-                          const float* ks, const float* vs, void* out, int B,
-                          int H, int Kh, int D, int bs, int NB, float scale,
-                          cudaStream_t stream) {
-  dim3 grid(B, Kh);
-  paged_decode_kernel<QT, KT>
-      <<<grid, kThreads, smem_bytes(H / Kh, D), stream>>>(
-          static_cast<const QT*>(q), static_cast<const KT*>(kp),
-          static_cast<const KT*>(vp), block_tables, lengths, ks, vs,
-          static_cast<QT*>(out), H, Kh, D, bs, NB, scale);
-}
-
-#define SPIN_KV_SWITCH(QT, CALL)                                  \
-  switch (kv_dtype) {                                             \
-    case kF32: CALL(QT, float); break;                            \
-    case kBF16: CALL(QT, __nv_bfloat16); break;                   \
-    case kI8: CALL(QT, int8_t); break;                            \
-    case kFP8: CALL(QT, __nv_fp8_e4m3); break;                    \
-    default: return static_cast<int>(cudaErrorInvalidValue);      \
-  }
-
-}  // namespace spin
 
 // q (B, H, D) f32/bf16; pools (N, bs, Kh, D) f32/bf16/int8/fp8;
 // block_tables (B, NB), < 0 = unallocated; lengths (B,); ks/vs (N, bs, Kh)
-// f32 or null; out like q.  Returns cudaGetLastError() after the launch.
+// f32 for int8/fp8 pools, else null; out like q.  The plan, the float32
+// scratch pm/pl (runs, B, H), pacc (runs, B, H, D) and the counters
+// (B * Kh) are spin_decode_attention's (decode_attention.cu) over S = NB
+// bs slots.  One launch.  Returns cudaGetLastError() after it (0 =
+// launched).
 extern "C" int spin_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const int* block_tables, const int* lengths, const float* k_scale,
-    const float* v_scale, void* out, int B, int H, int Kh, int D, int bs,
-    int NB, int q_dtype, int kv_dtype, float scale, void* stream) {
+    const float* v_scale, float* pm, float* pl, float* pacc, int* counters,
+    void* out, int B, int H, int Kh, int D, int bs, int NB, int per_run,
+    int runs, int wpt, int stages, int q_dtype, int kv_dtype, float scale,
+    void* stream) {
   using namespace spin;
-  if (B <= 0 || Kh <= 0 || H % Kh != 0 || D <= 0 || D > kMaxD ||
-      H / Kh > kMaxRows || bs <= 0 || NB < 0)
+  const bool quant = kv_dtype == kI8 || kv_dtype == kFP8;
+  if (bs <= 0 || NB < 0 || NB > INT_MAX / bs ||
+      quant != (k_scale != nullptr && v_scale != nullptr) ||
+      !decode_runs_ok(B, NB * bs, H, Kh, D, per_run, runs, wpt, stages, pm,
+                      pl, pacc, counters))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PagedRow row{block_tables, k_scale, v_scale, bs, NB};
+  int rc = 0;
 #define SPIN_DECODE(QT, KT)                                                 \
-  launch_decode<QT, KT>(q, k_pool, v_pool, block_tables, lengths, k_scale, \
-                        v_scale, out, B, H, Kh, D, bs, NB, scale, st)
+  rc = launch_decode_runs<QT, KT>(q, k_pool, v_pool, row, lengths, pm, pl, \
+                                  pacc, counters, out, B, NB * bs, H, Kh,   \
+                                  D, per_run, runs, wpt, stages, scale, st)
+#define SPIN_DECODE_KV(QT)                                        \
+  switch (kv_dtype) {                                             \
+    case kF32: SPIN_DECODE(QT, float); break;                     \
+    case kBF16: SPIN_DECODE(QT, __nv_bfloat16); break;            \
+    case kI8: SPIN_DECODE(QT, int8_t); break;                     \
+    case kFP8: SPIN_DECODE(QT, __nv_fp8_e4m3); break;             \
+    default: return static_cast<int>(cudaErrorInvalidValue);      \
+  }
   if (q_dtype == kF32) {
-    SPIN_KV_SWITCH(float, SPIN_DECODE)
+    SPIN_DECODE_KV(float)
   } else if (q_dtype == kBF16) {
-    SPIN_KV_SWITCH(__nv_bfloat16, SPIN_DECODE)
+    SPIN_DECODE_KV(__nv_bfloat16)
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef SPIN_DECODE_KV
 #undef SPIN_DECODE
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 

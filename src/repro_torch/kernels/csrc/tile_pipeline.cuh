@@ -1,7 +1,8 @@
-// The tile pipeline of the redesigned paged kernels (fused_decode.cu's
-// split layout, paged_attention.cu's paged_verify_attention): K/V tiles of
-// 32 slots streamed into shared memory by cp.async, several in flight, and
-// scored by teams of warps that each own a share of the tiles.
+// The tile pipeline of the redesigned attention kernels (fused_decode.cu's
+// split layout, verify_runs.cuh's runs of block entries, decode_runs.cuh's
+// runs of a decode row's tiles): K/V tiles of 32 slots streamed into
+// shared memory by cp.async, several in flight, and scored by teams of
+// warps that each own a share of the tiles.
 //
 // Teams.  The CTA's four warps form kWarps / wpt teams of wpt warps (wpt
 // = 1, 2 or 4).  Team g takes the tiles g, g + teams, g + 2 teams, ... of
@@ -219,7 +220,7 @@ struct QRows {
 // word and its tree-node index, and says whether the slot has data.
 // kTags: the slots carry pool tags (segment, position; the paged kernels)
 // that issue_tile copies and score_tile tests; without them (the dense
-// decode) every slot of the list is attended.
+// and the paged decode) every slot of the list is attended.
 
 // Slot c of a decode row: logical block c / bs of the row's table (in
 // shared memory); a slot of an unallocated block (< 0) has no data.
@@ -273,6 +274,29 @@ struct DenseMap {
   }
 };
 
+// Slot c of a run of a paged decode row (paged_decode_attention): logical
+// slot first + c of the run's slice of the row's table, which the kernel
+// has copied into shared memory from the run's first logical block (each
+// entry already max(id, 0): an unallocated block of the live prefix reads
+// block 0, as the reference does), for any block size; no tags, every
+// slot of the list is attended.
+struct PagedRowMap {
+  static constexpr bool kTags = false;
+  const int* table;  // the run's slice, in shared memory
+  int first;         // the run's first slot's offset in its block
+  int bs;
+  __device__ __forceinline__ bool operator()(int c, long long& slot,
+                                             int& own,
+                                             long long& node) const {
+    const int s = first + c;
+    const int e = s / bs;
+    own = 0;
+    node = 0;
+    slot = static_cast<long long>(table[e]) * bs + (s - e * bs);
+    return true;
+  }
+};
+
 // Pool tensors of one call, for one kv head.
 template <typename KT>
 struct Pool {
@@ -291,7 +315,8 @@ struct Pool {
 // (n_slots slots) into stage st: thread tg copies chunks tg / 32,
 // tg / 32 + wpt, ... of slot tg % 32's K and V rows; the team's first
 // warp also writes each slot's owner word and copies its tags
-// (Map::kTags).
+// (Map::kTags) and, for int8/fp8 pools, its scales (with or without
+// tags).
 template <typename KT, bool kTree, class Map>
 __device__ __forceinline__ void issue_tile(const Stage& st, const Pool<KT>& p,
                                            const Map& map, int tile,
@@ -304,10 +329,12 @@ __device__ __forceinline__ void issue_tile(const Stage& st, const Pool<KT>& p,
   const bool ok = c < n_slots && map(c, slot, own, nidx);
   if (tg < kTile) {
     st.own[j] = ok ? own : -1;
-    if (Map::kTags && ok) {
-      cp4(st.seg + j, p.seg + slot);
-      cp4(st.pos + j, p.pos + slot);
-      if (kTree) cp4(st.node + j, p.node + nidx);
+    if (ok) {
+      if (Map::kTags) {
+        cp4(st.seg + j, p.seg + slot);
+        cp4(st.pos + j, p.pos + slot);
+        if (kTree) cp4(st.node + j, p.node + nidx);
+      }
       if (kQuant) {
         cp4(st.ksc + j, p.ks + slot * p.Kh + p.h);
         cp4(st.vsc + j, p.vs + slot * p.Kh + p.h);

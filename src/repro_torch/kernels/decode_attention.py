@@ -7,7 +7,9 @@ cache, slots at or past ``lengths[b]`` masked.
 hand-written kernel ``csrc/decode_attention.cu`` or raises; there is no
 fallback on the card.  The kernel splits each row over runs of 32-slot
 tiles (:func:`run_plan`), the last live run of a row merging the others'
-partials in the same launch.
+partials in the same launch; it is the run-of-tiles kernel of
+``csrc/decode_runs.cuh``, which ``paged_attention.paged_decode_attention``
+runs over a block pool with the same plan.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ def run_plan(B: int, S: int, G: int, Kh: int, D: int, kv_bytes: int,
     to about :data:`RUN_CTAS_PER_SM` CTAs per SM, at most :data:`MAX_RUNS`
     of them; every tile lies in exactly one run and no run is empty (S =
     0: one empty run, which writes zeros).  Teams and stages are
-    :func:`build.tile_pipeline`'s for the G query rows."""
+    :func:`build.tile_pipeline`'s for the G query rows.  The paged decode
+    takes the same plan at S = NB * bs."""
     tiles = max(1, -(-S // build.KV_TILE))
     base = B * Kh
     want = max(1, round(RUN_CTAS_PER_SM * sms / base))
@@ -70,13 +73,8 @@ def decode_attention(q, k, v, lengths):
     per_run, runs, wpt, stages = run_plan(
         B, S, H // Kh, Kh, D, k.element_size(), build.sm_count(q.device))
     stream = build.stream_of(q)
-    pm = pl = pacc = counters = None
-    if runs > 1:
-        f32 = dict(dtype=torch.float32, device=q.device)
-        pm = torch.empty((runs, B, H), **f32)
-        pl = torch.empty((runs, B, H), **f32)
-        pacc = torch.empty((runs, B, H, D), **f32)
-        counters = build.merge_counters(q.device, stream, B * Kh)
+    pm, pl, pacc, counters = build.run_scratch(runs, B, H, D, B * Kh,
+                                               q.device, stream)
     out = torch.empty_like(q)
     ptr = build.ptr
     rc = _c_fn()(ptr(q), ptr(k), ptr(v), ptr(lengths), ptr(pm), ptr(pl),

@@ -1,8 +1,11 @@
 """The unfused paged attention kernels over a ``(N, bs, Kh, D)`` block pool
 (bf16/f32, or int8/fp8 with ``(N, bs, Kh)`` float32 scales):
 
-* ``paged_decode_attention``: one query token per row walks the row's block
-  table; slots valid iff their logical position is below ``lengths[b]``;
+* ``paged_decode_attention``: one query token per row against the row's
+  block table; slots valid iff their logical position is below
+  ``lengths[b]``.  It runs ``decode_attention``'s run-of-tiles kernel
+  (``csrc/decode_runs.cuh``) over the pool, sized by the same
+  ``decode_attention.run_plan`` over the table's NB * bs slots;
 * ``paged_verify_attention``: packed verification (Eq. 13) over a list of
   live blocks, the function of ``fused_verify.fused_paged_verify`` computed
   over runs of block entries (:func:`run_plan`): one CTA per (query tile,
@@ -23,7 +26,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, decode_attention, ref
 
 DECODE = "paged_decode_attention"
 VERIFY = "paged_verify_attention"
@@ -73,9 +76,15 @@ def _c_fn(source, name, n_ptr, n_int):
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
                            k_scale=None, v_scale=None):
     """q: (B, H, D); pools: (N, bs, Kh, D); block_tables: (B, NB) int32
-    physical block per logical block (< 0 = unallocated); lengths: (B,)
-    int32 live prefix per row (at most the allocated blocks' slots).
-    Returns (B, H, D) in q's dtype; a row of length 0 gives zeros."""
+    physical block per logical block (< 0 = unallocated: a live one reads
+    block 0, as the reference does); lengths: (B,) int32 live prefix per
+    row (at most the allocated blocks' slots).  Returns (B, H, D) in q's
+    dtype; a row of length 0 gives zeros.  On the card: one launch over
+    (row, kv head, run of 32-slot tiles), planned by
+    ``decode_attention.run_plan`` over the NB * bs slots of a row (no host
+    sync: the kernel reads the lengths); with more than one run, float32
+    partials and a merge by each (row, kv head)'s last live run; one count
+    in :data:`build.LAUNCHES` per call."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             lengths, k_scale, v_scale)
@@ -86,12 +95,19 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
                                         k_scale, v_scale)
     build.check_int("block_tables", block_tables, (B, NB), q.device)
     build.check_int("lengths", lengths, (B,), q.device)
+    per_run, runs, wpt, stages = decode_attention.run_plan(
+        B, NB * bs, H // Kh, Kh, D, k_pool.element_size(),
+        build.sm_count(q.device))
+    stream = build.stream_of(q)
+    pm, pl, pacc, counters = build.run_scratch(runs, B, H, D, B * Kh,
+                                               q.device, stream)
     out = torch.empty_like(q)
     ptr = build.ptr
-    rc = _c_fn("paged_attention", DECODE, 8, 8)(
+    rc = _c_fn("paged_attention", DECODE, 12, 12)(
         ptr(q), ptr(k_pool), ptr(v_pool), ptr(block_tables), ptr(lengths),
-        ptr(k_scale), ptr(v_scale), ptr(out), B, H, Kh, D, bs, NB, q_code,
-        kv_code, 1.0 / math.sqrt(D), build.stream_of(q))
+        ptr(k_scale), ptr(v_scale), ptr(pm), ptr(pl), ptr(pacc),
+        ptr(counters), ptr(out), B, H, Kh, D, bs, NB, per_run, runs, wpt,
+        stages, q_code, kv_code, 1.0 / math.sqrt(D), stream)
     build.raise_on(rc, DECODE)
     build.LAUNCHES[DECODE] += 1
     return out
@@ -141,14 +157,9 @@ def verify_runs(source, name, q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
         Tq, H // Kh, Kh, M, bs, D, k_pool.element_size(),
         build.sm_count(q.device))
     stream = build.stream_of(q)
-    pm = pl = pacc = counters = None
-    if runs > 1:
-        f32 = dict(dtype=torch.float32, device=q.device)
-        pm = torch.empty((runs, Tq, H), **f32)
-        pl = torch.empty((runs, Tq, H), **f32)
-        pacc = torch.empty((runs, Tq, H, D), **f32)
-        counters = build.merge_counters(q.device, stream,
-                                        -(-Tq // bq) * Kh)
+    pm, pl, pacc, counters = build.run_scratch(runs, Tq, H, D,
+                                               -(-Tq // bq) * Kh, q.device,
+                                               stream)
     out = torch.empty_like(q)
     ptr = build.ptr
     rc = _c_fn(source, name, 18, 13)(

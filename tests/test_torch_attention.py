@@ -221,6 +221,35 @@ def test_paged_decode_attention_matches_reference(kv, qdt, H, Kh, D, bs):
     assert not got[1].float().abs().any()
 
 
+# The geometries of the run-of-tiles kernel: rows whose live prefix ends
+# mid-block and mid-tile, block sizes 32 and 64 (a 32-slot tile is half
+# a block), three unallocated tail entries, and a hole (-1) inside a live
+# prefix, which the reference reads as block 0.  Tolerances as above.
+@pytest.mark.parametrize("kv,qdt,H,Kh,D,bs,lens,hole", [
+    ("f32", "f32", 4, 2, 16, 32, [45, 0, 64, 97], False),
+    ("bf16", "bf16", 6, 1, 32, 64, [100, 1, 63, 0], False),
+    ("int8", "bf16", 4, 4, 16, 16, [37, 50, 0, 16], True),
+    ("fp8", "f32", 4, 2, 32, 8, [37, 9, 70, 8], True),
+    ("f32", "f32", 2, 2, 16, 64, [129, 33], True)])
+def test_paged_decode_attention_edge_geometries(kv, qdt, H, Kh, D, bs, lens,
+                                                hole):
+    rng = np.random.default_rng(bs * 11 + H + len(lens))
+    bt, N = fragmented_tables(rng, lens, bs, extra_cols=3)
+    if hole:                     # row 0's second block unallocated
+        bt[0, 1] = -1
+    (jk, tk), (jv, tv), (jks, tks), (jvs, tvs) = pools(rng, (N, bs, Kh, D),
+                                                       kv)
+    jq, tq = both(rng.standard_normal((len(lens), H, D)), qdt)
+    (jbt, tbt), (jl, tl) = ints(bt), ints(lens)
+    want = jops.paged_decode_attention(jq, jk, jv, jbt, jl, jks, jvs,
+                                       interpret=True)
+    got = ops.paged_decode_attention(tq, tk, tv, tbt, tl, tks, tvs)
+    check(got, want)
+    for b, L in enumerate(lens):
+        if L == 0:
+            assert not got[b].float().abs().any()
+
+
 # ------------------------------------------------ paged_verify_attention --
 
 def verify_pool(rng, lens, gamma, bs, tree, shuffle=False, n_entries=None):

@@ -146,6 +146,34 @@ def test_paged_decode_attention_matches_plain(gen, kv, G):
            "paged_decode_attention", a)
 
 
+# the run-of-tiles kernel over a block pool: long rows at B = 1 (LLaMA-7B's
+# heads, GQA 6 at Kh 8, float32), unequal int8 rows whose runs past the
+# length exit, block sizes 8 (fp8) and 64 (bf16) with rows ending
+# mid-block and mid-tile, LLaMA-616M's draft rows (D 96)
+@pytest.mark.parametrize("kv,lens,H,Kh,D,bs", [
+    ("bf16", [4001], 32, 32, 128, 16), ("bf16", [8190], 48, 8, 128, 16),
+    ("f32", [1999], 32, 32, 128, 16),
+    ("int8", [0, 1, 700, 2048], 32, 32, 128, 16),
+    ("fp8", [0, 37, 700, 2047], 32, 32, 128, 8),
+    ("bf16", [63, 0, 700, 4095], 48, 8, 128, 64),
+    ("bf16", [0, 15, 47, 79, 1023, 20], 16, 16, 96, 16)])
+def test_paged_decode_attention_long_rows(gen, kv, lens, H, Kh, D, bs):
+    a = cases.paged_decode_inputs(gen, lens, H, Kh, D, bs, kv)
+    _check(paged_attention.paged_decode_attention,
+           paged_attention.paged_decode_attention_plain,
+           "paged_decode_attention", a)
+
+
+def test_paged_decode_attention_reads_block_0_for_a_hole(gen):
+    """An unallocated entry (-1) inside a live prefix reads physical block
+    0, as the reference's index map does."""
+    a = cases.paged_decode_inputs(gen, [700, 33], 16, 16, 96, 16, "bf16")
+    a["block_tables"][0, 3] = -1
+    _check(paged_attention.paged_decode_attention,
+           paged_attention.paged_decode_attention_plain,
+           "paged_decode_attention", a)
+
+
 @pytest.mark.parametrize("kv,tree,G", [
     ("bf16", False, 1), ("int8", True, 2), ("fp8", False, 4),
     ("f32", True, 1)])

@@ -14,6 +14,13 @@
   32-slot tile of a row once (and, by the kernel's rule, every live slot
   once; a row of length 0 is one empty run), fill the card at a long row
   and a small batch, and respect the run cap and shared memory;
+* ``paged_attention.paged_decode_attention``'s plan, ``decode_attention``'s
+  run planner at S = NB * bs: its runs cover every 32-slot tile of a row
+  once and, by the kernel's rule (each run's slice of the block table),
+  every live slot once for block sizes 8 to 64 and lengths that stop
+  mid-block and mid-tile; a row of length 0 is one empty run; the stages,
+  the queries and the table slice fit in shared memory; a stubbed-card
+  test holds the paged and the dense decode to the same plan;
 * ``fused_decode.decode_plan`` and ``build.tile_pipeline``: the split
   layout exactly where a CTA has fewer query rows than warps, at most four
   rows a warp, stages within their byte budget, and the stage layout of
@@ -266,6 +273,138 @@ def test_dense_decode_plan_keeps_a_short_grid_whole():
     per_run, runs, wpt, _ = decode_attention.run_plan(6, 256, 1, 32, 128, 2,
                                                       sms=132)
     assert runs == 1 and per_run == 8 and wpt == 1
+
+
+PAGED_GEOMETRIES = [  # B, G, Kh, D, kv bytes
+    (6, 1, 16, 96, 2), (1, 6, 8, 128, 2), (1, 1, 32, 128, 2),
+    (4, 1, 32, 128, 1), (1, 1, 32, 128, 4), (6, 4, 4, 96, 4),
+    (64, 8, 8, 128, 2), (1, 16, 1, 128, 4)]
+PAGED_BLOCKS = [0, 1, 3, 4, 17, 129, 514, 2048]
+
+
+def _table_words(run_slots, bs):
+    """The table entries run_slots consecutive slots can touch at any
+    offset: csrc/decode_runs.cuh, ``PagedRow::table_words``."""
+    return (run_slots + bs - 2) // bs + 1
+
+
+def _paged_run_slots(length, NB, bs, per_run):
+    """The logical slots each live run of a paged row reads, by the
+    kernel's rule (csrc/decode_runs.cuh, ``PagedRow`` and
+    ``pipe::PagedRowMap``): run z copies the table entries from e0 = z
+    run_slots // bs (at most table_words of them, none past NB) and reads
+    its slot c through entry (first + c) // bs of that slice, first = z
+    run_slots - e0 bs."""
+    live = min(max(length, 0), NB * bs)
+    run_slots = per_run * build.KV_TILE
+    out = []
+    for z in range(max(1, -(-live // run_slots))):
+        e0 = z * run_slots // bs
+        n = min(NB - e0, _table_words(run_slots, bs))
+        c = np.arange(max(0, min(run_slots, live - z * run_slots)))
+        s = z * run_slots - e0 * bs + c
+        e = s // bs
+        assert (e < n).all(), "a slot past the run's table slice"
+        out.append((e0 + e) * bs + s % bs)
+    return out
+
+
+@pytest.mark.parametrize("B,G,Kh,D,kv_bytes", PAGED_GEOMETRIES)
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+@pytest.mark.parametrize("NB", PAGED_BLOCKS)
+def test_paged_decode_plan_covers_every_live_slot_once(B, G, Kh, D,
+                                                       kv_bytes, bs, NB):
+    """The runs over a row's NB * bs slots cover every 32-slot tile once,
+    none empty, at most MAX_RUNS; every live slot of a row of any length
+    (ending mid-block, mid-tile, at the table's end) is read once, through
+    its own table entry; the stages, the queries and the run's table
+    slice fit in shared memory."""
+    S = NB * bs
+    per_run, runs, wpt, stages = decode_attention.run_plan(
+        B, S, G, Kh, D, kv_bytes, sms=132)
+    tiles = -(-S // build.KV_TILE)
+    covered = [t for z in range(runs)
+               for t in range(z * per_run, min(tiles, (z + 1) * per_run))]
+    assert covered == list(range(tiles))
+    assert all(z * per_run < max(tiles, 1) for z in range(runs)), \
+        "an empty run"
+    assert 1 <= runs <= decode_attention.MAX_RUNS
+    _check_pipeline(G, D, kv_bytes, wpt, stages,
+                    _align16(4 * G * D)
+                    + _align16(4 * _table_words(per_run * build.KV_TILE,
+                                                bs)))
+    for length in {0, 1, bs - 1, bs + 1, 33, S // 3, S - 1, S, S + 5}:
+        spans = _paged_run_slots(length, NB, bs, per_run)
+        assert len(spans) <= runs
+        got = np.concatenate(spans) if spans else np.zeros(0, int)
+        assert got.tolist() == list(range(min(max(length, 0), S)))
+
+
+def test_paged_decode_row_of_length_zero_is_one_empty_run():
+    """The ops path's shape (B 6, G 1, Kh 16, D 96, 4 blocks of 16) and an
+    empty table: a row of length 0 is one run of no slot (it writes
+    zeros)."""
+    for NB in (4, 0):
+        per_run, runs, _, _ = decode_attention.run_plan(
+            6, NB * 16, 1, 16, 96, 2, sms=132)
+        assert [s.tolist() for s in _paged_run_slots(0, NB, 16, per_run)] \
+            == [[]]
+    assert runs == 1
+
+
+def test_paged_decode_sizes_its_call_as_decode_attention(monkeypatch):
+    """At the ops path's input (q (6, 16, 96) over 4 blocks of 16) and a
+    long row (q (1, 48, 128), GQA 6, over 514 blocks of 16) the paged
+    decode takes ``decode_attention.run_plan`` at S = NB * bs and passes
+    the same plan as the dense decode over (B, NB * bs, Kh, D); one count
+    each under its own name, the float32 partials only with more than one
+    run.  The card's pieces are stubbed: meta tensors carry the shapes."""
+    plans, calls = [], []
+    real = decode_attention.run_plan
+
+    def plan(*a):
+        plans.append(real(*a))
+        return plans[-1]
+
+    def recorder(n_ptr):
+        def fn(*args):
+            calls.append((args[:n_ptr], args[n_ptr:]))
+            return 0
+        return fn
+
+    monkeypatch.setattr(decode_attention, "run_plan", plan)
+    monkeypatch.setattr(decode_attention, "_c_fn", lambda: recorder(9))
+    monkeypatch.setattr(paged_attention, "_c_fn",
+                        lambda source, name, n_ptr, n_int: recorder(n_ptr))
+    monkeypatch.setattr(build, "check_pools", lambda *a: (1, 1))
+    monkeypatch.setattr(build, "check_dense", lambda *a: (1, 1))
+    monkeypatch.setattr(build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(build, "ptr", lambda t: None if t is None else 1)
+    monkeypatch.setattr(build, "_COUNTERS", {})
+    monkeypatch.setattr(build, "LAUNCHES", collections.Counter())
+    meta = dict(device="meta")
+    i32 = dict(dtype=torch.int32, **meta)
+    bf16 = dict(dtype=torch.bfloat16, **meta)
+    for B, H, Kh, D, NB in ((6, 16, 16, 96, 4), (1, 48, 8, 128, 514)):
+        q = torch.empty(B, H, D, **bf16)
+        lengths = torch.empty(B, **i32)
+        pool = torch.empty(NB * B + 3, 16, Kh, D, **bf16)
+        paged_attention.paged_decode_attention(
+            q, pool, pool, torch.empty(B, NB, **i32), lengths)
+        dense = torch.empty(B, NB * 16, Kh, D, **bf16)
+        decode_attention.decode_attention(q, dense, dense, lengths)
+    assert plans[0] == plans[1] and plans[2] == plans[3]
+    assert plans[0][1] == 2 and plans[2][1] > 1      # runs: both split
+    # (ptrs, ints): paged ints B H Kh D bs NB per_run runs wpt stages ...;
+    # dense ints B S H Kh D per_run runs wpt stages ...
+    for (pp, pi), (dp, di), p in ((calls[0], calls[1], plans[0]),
+                                  (calls[2], calls[3], plans[2])):
+        assert pi[6:10] == di[5:9] == p
+        assert pi[4] * pi[5] == di[1]
+        assert pp[7:11] == dp[4:8] == (1, 1, 1, 1)   # partials, counters
+    assert build.LAUNCHES == {"paged_decode_attention": 2,
+                              "decode_attention": 2}
 
 
 DECODE_GEOMETRIES = [  # B, T, G, Kh, NB, bs

@@ -27,21 +27,29 @@ its largest verify call, for ``fused_paged_verify`` and for
 ``paged_verify_attention`` (the ops path's input), the largest
 ``fused_paged_verify`` call of the dbrx-132b paged path (2 layers, G 6),
 and every check shape of ``fused_paged_decode``, ``fused_paged_verify``
-and ``paged_verify_attention``; ``decode`` the ops path's
-``decode_attention`` input (the dense LLaMA-7B serving path's last-layer
-K/V grid) and every check shape of ``decode_attention``.  The check
-shapes come from ``chip_smoke.kernel_check_cases``.  ``kernels`` builds
-the kernels those inputs need and times each on them with the tree at
-<root>: the median of 15 individually timed calls, the L2 cache flushed
-before each, with the device held busy while the host enqueues them
-(``chip_smoke.Timer``'s method), and each output's largest difference
-from the plain version.
+and ``paged_verify_attention``; ``decode`` the ops path's inputs of
+``decode_attention`` (the dense LLaMA-7B serving path's last-layer K/V
+grid) and of ``paged_decode_attention`` (the first query of the paged
+serving path's largest ``fused_paged_decode`` call), and every check shape
+of both.  The check shapes come from ``chip_smoke.kernel_check_cases``.
+``kernels`` builds the kernels those inputs need and times each on them
+with the tree at <root>: the median of 15 individually timed calls, the L2
+cache flushed before each, with the device held busy while the host
+enqueues them (``chip_smoke.Timer``'s method), and each output's largest
+difference from the plain version; it also reports each source's ptxas
+registers and spill bytes per entry.
 Prints ``ABK {json}``.
 
 Compare two trees in one call, in turns: unpack the other tree (e.g.
 ``git archive``) into an ignored directory and run parent, change,
-change, parent, one process each.  Uses only entry points both trees
-share.
+change, parent, one process each, with the labels ``parent`` and
+``change``, their ``ABK`` lines appended to one file; then
+
+    python3 tools/torch_ab_paths.py <root> compare <that file>
+
+prints the change's time over the parent's for each case and whether
+each source's ptxas registers and spills moved.  Uses only entry points
+both trees share.
 """
 import dataclasses
 import json
@@ -70,6 +78,7 @@ KERNEL_MODULES = {
     "verify_attention": ("verify_attention", "verify_attention"),
     "fused_paged_decode": ("fused_decode", "fused_decode"),
     "paged_verify_attention": ("paged_attention", "paged_attention"),
+    "paged_decode_attention": ("paged_attention", "paged_attention"),
 }
 
 
@@ -84,7 +93,7 @@ def prepare(path, parts):
     checks = {"dense": ("verify_attention",),
               "paged": ("fused_paged_decode", "fused_paged_verify",
                         "paged_verify_attention"),
-              "decode": ("decode_attention",)}
+              "decode": ("decode_attention", "paged_decode_attention")}
     wanted = {n for p in parts for n in checks.get(p, ())}
     gen = torch.Generator().manual_seed(11)
     for name, label, a in cs.kernel_check_cases(gen):
@@ -100,16 +109,21 @@ def prepare(path, parts):
             if "decode" in parts:
                 saved["decode_attention ops path"] = dict(
                     kernel="decode_attention", args=grid)
-        if "paged" in parts:
+        if "paged" in parts or "decode" in parts:
             with cs.Tap(ops, "fused_paged_verify") as tv, \
                     cs.Tap(ops, "fused_paged_decode") as td:
                 cs.serve(llm, ssms, 6, 0.3, capacity=6)
+        if "paged" in parts:
             saved["fused_paged_decode paged path"] = dict(
                 kernel="fused_paged_decode", args=td.best)
             saved["fused_paged_verify paged path"] = dict(
                 kernel="fused_paged_verify", args=tv.best)
             saved["paged_verify_attention ops path"] = dict(
                 kernel="paged_verify_attention", args=tv.best)
+        if "decode" in parts:
+            saved["paged_decode_attention ops path"] = dict(
+                kernel="paged_decode_attention",
+                args=cs.ops_paged_decode_input(td.best))
         if "flash" in parts:
             qkv = cs.layer0_qkv(llm, 2048, seed=7)
             saved["flash llama-7b"] = dict(kernel="flash_attention",
@@ -170,8 +184,12 @@ def kernels(path):
 
     saved = torch.load(path)
     names = sorted({v["kernel"] for v in saved.values()})
-    build.build_all([KERNEL_MODULES[n][1] for n in names])
-    out = {"label": label, "card": torch.cuda.get_device_name(0)}
+    sources = sorted({KERNEL_MODULES[n][1] for n in names})
+    logs = build.build_all(sources)
+    out = {"label": label, "card": torch.cuda.get_device_name(0),
+           "ptxas": {n: [[e["entry"], e["registers"], e["spill_bytes"]]
+                         for e in build.ptxas_entries(logs[n]["ptxas"])]
+                     for n in sources}}
     for case, v in saved.items():
         mod = importlib.import_module("repro_torch.kernels."
                                       + KERNEL_MODULES[v["kernel"]][0])
@@ -229,9 +247,38 @@ def serving(paths):
     print("AB " + json.dumps(out), flush=True)
 
 
+def compare(path):
+    """Change over parent for each case of the ``ABK`` lines in ``path``
+    (the last four, run as parent, change, change, parent): the mean of
+    the change's two times over the mean of the parent's; and whether each
+    source's ptxas registers and spills agree entry by entry (each side's
+    first run builds)."""
+    runs = [json.loads(ln[4:]) for ln in open(path)
+            if ln.startswith("ABK ")][-4:]
+    if [r["label"] for r in runs] != ["parent", "change", "change",
+                                      "parent"]:
+        sys.exit(f"{path}: want the labels parent, change, change, parent")
+    for case in runs[0]:
+        if case in ("label", "card", "ptxas"):
+            continue
+        ms = [r[case]["ms"] for r in runs]
+        ratio = (ms[1] + ms[2]) / (ms[0] + ms[3])
+        print(f"{ratio:.3f} {case}: parent {ms[0]:.4f}/{ms[3]:.4f} change "
+              f"{ms[1]:.4f}/{ms[2]:.4f} err {runs[1][case]['max_abs_err']:.3g}")
+    for src, old in runs[0].get("ptxas", {}).items():
+        new = runs[1].get("ptxas", {}).get(src, [])
+        same = [e[1:] for e in old] == [e[1:] for e in new]
+        print(f"ptxas {src}: {len(old)} / {len(new)} entries, "
+              + ("registers and spills equal" if same else "CHANGED"))
+        if not same:
+            print(f"  parent {old}\n  change {new}")
+
+
 if label == "prepare":
     prepare(mode, (sys.argv[4] if len(sys.argv) > 4
                    else "flash,dense,paged,decode").split(","))
+elif label == "compare":
+    compare(mode)
 elif mode == "kernels":
     kernels(sys.argv[4])
 else:
