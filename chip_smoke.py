@@ -81,16 +81,47 @@ script then exits non-zero without its last line.  Phases:
    and of LLaMA-7B (S = 2048, phase 4's model), launch counts as in phase
    4, each also held against ``layers.attention`` and timed;
 13. timing of each kernel on the largest call its path made (its own
-   inputs, kept in phases 4, 5, 8 and 12): kernel, plain version and one
-   PyTorch library call (scaled_dot_product_attention, a yardstick the
-   port never calls), each the median of individually timed launches with
-   the L2 cache flushed before each; and the bound, the larger of the
+   inputs, kept in phases 4, 5, 8 and 12; this timing runs last):
+   kernel, plain version and one PyTorch library call
+   (scaled_dot_product_attention, a yardstick the port never calls), each
+   the median of individually timed launches with the L2 cache flushed
+   before each; and the bound, the larger of the
    bytes over 3.35 TB/s and the operations over the peak rate of the input
    type.  ``fused_paged_verify`` and ``paged_verify_attention`` (the same
    function) are timed on the same input, the paged path's largest
    verify call, and printed side by side; ``paged_decode_attention`` is
    timed on its GQA 6, 8190-slot check beside ``decode_attention`` on the
-   same K/V content as a dense cache, on one ``same content`` line.
+   same K/V content as a dense cache, on one ``same content`` line;
+14. the fleet path (right after phase 4, on its zoo): the router
+   (``serving/router.py``) over two paged replicas sharing LLaMA-7B and
+   the SSMs, built by the serve launcher's ``build_fleet``, aggregate
+   capacity 6 split 3/3, fused kernels on, 8 requests of the mix
+   workload at scale 0.3 with Poisson arrivals; policy lot, then p2c
+   with work stealing and the classes prefill,decode.  Each fleet serves
+   an untimed pass that keeps both fused kernels' largest calls, then a
+   timed run: per replica requests, slots and wall ms per slot, fleet
+   tokens/s and the launches of ``fused_paged_verify`` and
+   ``fused_paged_decode`` per fleet slot (counts set to 0 before the run
+   and read after); then each kept call against its plain version, timed
+   as in phase 13;
+15. the fleet's losslessness (after phase 6): LLaMA-7B at 4 layers,
+   float32, unit-scale attention, two replicas, p2c with stealing; every
+   request's tokens against plain greedy decoding (phase 6's gap rule);
+16. the engine-free speculation API: ``spec_iteration`` over dense
+   caches with phase 15's LLM and LLaMA-68M at full width as the SSM,
+   three prompts; the emitted tokens against plain greedy decoding;
+17. training (after phase 12): ``launch/train.py`` on qwen2-0.5b at
+   published widths and depth, float32, batch 8, sequence 128, 30 steps
+   uninterrupted, then 30 with a checkpoint every 10 and a failure
+   injected at step 15 that resumes from step 9's checkpoint (losses
+   held to the uninterrupted run's at ``TRAIN_RTOL``); the global
+   gradient norm at the launcher's init and at unit-scale attention; at
+   unit-scale attention, 30 steps of the launcher's step function,
+   optimizer and schedule, the loss on held-out batches falling by
+   ``TRAIN_DROP_SE`` standard errors; then each ``remat`` mode: its
+   gradients at the init against none's, and two steps from the init
+   whose second loss (it reads the first step's update) is held to
+   none's; ms of the second step and peak memory.
 
 The last three lines are the kernels JSON, the card line of
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and
@@ -106,6 +137,7 @@ import inspect
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -122,18 +154,23 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.configs import registry, spin_llama  # noqa: E402
 from repro_torch.core import spec_decode as sd  # noqa: E402
+from repro_torch.data.pipeline import TokenStream  # noqa: E402
 from repro_torch.data.workloads import make_workload  # noqa: E402
 from repro_torch.kernels import (build, cases,  # noqa: E402
                                  decode_attention, flash_attention,
                                  fused_decode, fused_verify, ops,
                                  paged_attention, quant, verify_attention)
 from repro_torch.kernels.ref import tree_mask_term  # noqa: E402
-from repro_torch.launch.serve import make_selector  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch.serve import build_fleet, make_engine  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.layers import (attention, embed,  # noqa: E402
                                        rms_norm)
-from repro_torch.serving.engine import EngineConfig, SpinEngine  # noqa: E402
+from repro_torch.models.params import tensor_leaves  # noqa: E402
+from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
+from repro_torch.serving.engine import EngineConfig  # noqa: E402
 from repro_torch.serving.pool import DenseCachePool  # noqa: E402
+from repro_torch.serving.router import Router, RouterConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 TIMED_RUNS = 3
@@ -178,6 +215,24 @@ SAME_CONTENT = ("paged_decode_attention", "GQA 6 Kh 8 B=1 8190 slots bf16")
 # the MoE paths' depth cuts: layers of the published 56 (mixtral) and 40
 # (dbrx) that one card holds beside the SSMs, in bf16
 MIXTRAL_LAYERS, DBRX_LAYERS = 4, 2
+# the fleet paths: requests of the mix workload (scale 0.3) with Poisson
+# arrivals at this rate (requests per sim-clock second), over two replicas
+# splitting an aggregate capacity of 6
+FLEET_REQUESTS, FLEET_RATE, FLEET_CAPACITY = 8, 300.0, 6
+# the train phase: qwen2-0.5b at published widths and depth, float32;
+# steps, checkpoint interval, the injected failure's step, and the
+# relative tolerance of the resumed run's losses against an uninterrupted
+# run's (backward kernels on a GPU need not be bitwise deterministic);
+# peak learning rate (the launcher's default) and warmup (sized for 30
+# steps); the held-out batches (stream steps from TRAIN_EVAL_FROM on) and
+# the standard errors of their mean by which training must lower their
+# loss; the remat modes' tolerances against none: gradients (max
+# |g - g_none| over max(1, max |g_none|), per leaf) and the second step's
+# loss (relative)
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_RTOL = 30, 10, 15, 1e-3
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 5
+TRAIN_EVAL, TRAIN_EVAL_FROM, TRAIN_DROP_SE = 16, 1000, 5.0
+REMAT_GRAD_TOL, REMAT_RTOL = 1e-4, 1e-5
 PAGED = [n for n, (_, _, path) in SOURCES.items() if path == "paged"]
 
 
@@ -760,13 +815,8 @@ def serve(llm, ssms, n_req, scale, around=None, fused_kernels="on",
     e.g. a profiler) encloses the run alone."""
     reqs = make_workload("mix", n_req, llm.cfg.vocab_size, seed=0,
                          scale=scale)
-    cap = ecfg_kw.pop("capacity")
-    sel = make_selector("lbss", len(ssms), cap,
-                        {r.rid: r.prompt_len for r in reqs}, 0,
-                        group_of={r.rid: r.dataset for r in reqs})
-    ecfg = EngineConfig(gamma=4, capacity=cap, max_len=256,
-                        fused_kernels=fused_kernels, **ecfg_kw)
-    eng = SpinEngine(llm, ssms, sel, ecfg)
+    eng = make_engine(llm, ssms, reqs, EngineConfig(
+        gamma=4, max_len=256, fused_kernels=fused_kernels, **ecfg_kw))
     eng.add_requests(reqs)
     torch.cuda.synchronize()
     with around or contextlib.nullcontext():
@@ -796,9 +846,9 @@ def device_time(prof):
 
 
 class Tap:
-    """Wraps an ``ops`` entry point during the main path and keeps a copy
+    """Wraps an ``ops`` entry point during a serving run and keeps a copy
     of the arguments of its largest call (by query elements x block-list
-    length), for phase 7's timing on the main path's own inputs."""
+    length), for timing and checks on the path's own inputs."""
 
     def __init__(self, module, attr):
         self.module, self.attr = module, attr
@@ -860,9 +910,10 @@ def phase_main_path(report):
     report["main_path_device_ms_by_kernel"] = by_kernel
     # flash_attention's LLaMA-7B input: layer 0 of this model
     qkv = layer0_qkv(llm, 2048, seed=7)
-    del eng, llm, ssms, prof
+    del eng, prof
     torch.cuda.empty_cache()
-    return line["launches"], captured, line["wall_ms_per_slot"], qkv
+    return (line["launches"], captured, line["wall_ms_per_slot"], qkv,
+            (llm, ssms))
 
 
 def dense_inputs(llm, ssms):
@@ -969,6 +1020,22 @@ def unit_attention(bundles):
             p["wk"].mul_(math.sqrt(b.cfg.n_kv_heads / d))
 
 
+def divergences(tokens, refs):
+    """Per request whose tokens differ from greedy decoding's (``refs``:
+    rid -> (tokens, top-2 gaps)), the first differing token and the
+    reference's top-2 logit gap there."""
+    div = []
+    for rid, got in tokens.items():
+        want, gaps = refs[rid]
+        if got != want:
+            i = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), len(got))
+            div.append(dict(rid=rid, index=i, gap=gaps[i],
+                            got=got[i] if i < len(got) else None,
+                            want=want[i]))
+    return div
+
+
 def lossless_run(llm, ssms, fused_kernels, refs=None, kv_layout="paged"):
     """Serve the float32 zoo and hold each request's tokens against plain
     greedy decoding (computed here unless ``refs`` are given); a
@@ -981,16 +1048,8 @@ def lossless_run(llm, ssms, fused_kernels, refs=None, kv_layout="paged"):
     if refs is None:
         refs = {r.rid: greedy_reference(llm, r.prompt, r.max_new)
                 for r in eng.requests.values()}
-    tokens, div = {}, []
-    for r in eng.requests.values():
-        want, gaps = refs[r.rid]
-        got = tokens[r.rid] = r.emitted[:r.max_new]
-        if got != want:
-            i = next((i for i, (a, b) in enumerate(zip(got, want))
-                      if a != b), len(got))
-            div.append(dict(rid=r.rid, index=i, gap=gaps[i],
-                            got=got[i] if i < len(got) else None,
-                            want=want[i]))
+    tokens = {r.rid: r.emitted[:r.max_new] for r in eng.requests.values()}
+    div = divergences(tokens, refs)
     line = dict(kv_layout=kv_layout, fused_kernels=fused_kernels,
                 requests=len(tokens),
                 exact=len(tokens) - len(div), divergences=div,
@@ -1241,6 +1300,353 @@ def phase_ops_path(report, paged_verify, paged_decode, dense_grid):
     return launches, inputs
 
 
+# -------------------------------------------------------------- fleet --
+
+def fleet(llm, ssms, policy, steal="off", classes=None):
+    """A ``Router`` over two paged engines built as the serve launcher
+    builds a fleet (``launch.serve.build_fleet``: the zoo's bundles and the
+    one card shared, pools and selectors per replica, ``FLEET_CAPACITY``
+    split evenly), fused kernels on; serves ``FLEET_REQUESTS`` requests of
+    the mix workload with Poisson arrivals to the end.  Checks that every
+    request finishes, that each replica serves at least one and that the
+    fleet's tokens are the sum of its replicas'.  Returns (router, line)."""
+    reqs = make_workload("mix", FLEET_REQUESTS, llm.cfg.vocab_size, seed=0,
+                         scale=0.3, arrival_rate=FLEET_RATE)
+    classes = classes or ["general", "general"]
+    engines = build_fleet(llm, ssms, reqs, EngineConfig(
+        gamma=4, capacity=FLEET_CAPACITY, max_len=256, fused_kernels="on"),
+        classes)
+    router = Router(engines, RouterConfig(
+        policy=policy, steal=steal,
+        classes=",".join(classes) if set(classes) != {"general"} else ""))
+    router.submit(reqs)
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    stats = router.run(max_slots=400)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    served = [r for eng in engines for r in eng.requests.values()]
+    unfinished = [r.rid for r in served if not r.done]
+    check(stats["finished"] == FLEET_REQUESTS and len(served)
+          == FLEET_REQUESTS and not unfinished,
+          f"fleet {policy}: finished {stats['finished']}, unfinished "
+          f"{unfinished}")
+    per = [len(eng.scheduler.finished) for eng in engines]
+    check(min(per) >= 1, f"fleet {policy}: a replica served nothing {per}")
+    tokens = [sum(len(r.emitted) for r in eng.requests.values())
+              for eng in engines]
+    check(stats["accepted_tokens"]
+          == sum(s["accepted_tokens"] for s in stats["replica_stats"])
+          and sum(tokens) == sum(len(r.emitted) for r in served),
+          f"fleet {policy}: fleet tokens are not the replicas' sum")
+    slots = sum(stats["steps"])
+    line = dict(policy=policy, steal=steal, classes=stats["classes"],
+                requests=FLEET_REQUESTS, finished_per_replica=per,
+                dispatched=stats["dispatched"], steals=stats["steals"],
+                slots=stats["steps"],
+                wall_ms_per_slot=[eng.wall_time * 1e3 / max(1, n)
+                                  for eng, n in zip(engines, stats["steps"])],
+                fleet_wall_s=wall,
+                fleet_tokens_per_s_wall=stats["accepted_tokens"] / wall,
+                accepted_tokens=stats["accepted_tokens"],
+                emitted_tokens=tokens, launches=launches,
+                launches_per_fleet_slot={k: v / slots
+                                         for k, v in launches.items()},
+                makespan_sim=stats["makespan_sim"])
+    return router, line
+
+
+def phase_fleet_path(report, timer, llm, ssms):
+    """The main path's zoo (LLaMA-7B, full width and depth, bf16, and the
+    three SSMs) behind the router: two replicas, lot; then p2c with work
+    stealing and the classes prefill,decode.  Each fleet first serves an
+    untimed pass that warms its shapes up and keeps both fused kernels'
+    largest calls; then the timed run, driven with the launch counts set
+    to 0 just before it and read just after: both fused kernels must
+    launch, and no other.  Last, each kept call is held against its plain
+    version and timed."""
+    log("fleet path: " + describe(llm, ssms, "bf16 weights, paged bf16 KV, "
+                                  "2 replicas"))
+    lines, todo = [], []
+    for kw in (dict(policy="lot"),
+               dict(policy="p2c", steal="on", classes=["prefill",
+                                                        "decode"])):
+        taps = [Tap(ops, name) for name in PAGED]
+        with taps[0], taps[1]:
+            fleet(llm, ssms, **kw)                         # untimed
+        what = " ".join([kw["policy"], *kw.get("classes", [])])
+        todo += [(t.attr, f"fleet {what}, largest call", t.best)
+                 for t in taps]
+        router, line = fleet(llm, ssms, **kw)
+        for name in PAGED:
+            check(line["launches"].get(name, 0) > 0,
+                  f"fleet {kw}: {name} never launched")
+        check(set(line["launches"]) <= set(PAGED),
+              f"fleet {kw}: other kernels launched {line['launches']}")
+        log(f"fleet path [{report['card']}] " + json.dumps(line))
+        lines.append(line)
+        del router
+    report["fleet_path"] = lines
+    run_checks(todo, timer, report)
+
+
+def lossless_check(what, tokens, refs):
+    """Each request's tokens against plain greedy decoding; a mismatch
+    passes only where the reference's top-2 logit gap is below 1e-4."""
+    div = divergences(tokens, refs)
+    bad = [d for d in div if d["gap"] >= 1e-4]
+    check(not bad, f"{what}: tokens differ from greedy decoding at top-2 "
+          f"gaps >= 1e-4: {bad}")
+    return dict(requests=len(tokens), exact=len(tokens) - len(div),
+                divergences=div)
+
+
+def phase_fleet_lossless(report):
+    """Two float32 replicas (LLaMA-7B cut to 4 layers, unit-scale
+    attention as in phase 6), p2c with work stealing: every request's
+    tokens equal plain greedy decoding.  Returns the zoo for the
+    speculation-API phase."""
+    llm, ssms = full_zoo("float32", llm_layers=4)
+    unit_attention([llm] + ssms)
+    router, line = fleet(llm, ssms, "p2c", steal="on")
+    tokens = {r.rid: r.emitted[:r.max_new] for eng in router.engines
+              for r in eng.requests.values()}
+    refs = {r.rid: greedy_reference(llm, r.prompt, r.max_new)
+            for eng in router.engines for r in eng.requests.values()}
+    line.update(lossless_check("fleet", tokens, refs))
+    log(f"fleet lossless (float32, LLM 4 layers, unit-scale attention) "
+        f"[{report['card']}] " + json.dumps(line))
+    report["fleet_lossless"] = line
+    return llm, ssms
+
+
+def phase_spec_api(report, llm, ssm, new_tokens=24, gamma=4):
+    """The engine-free speculation API (``spec_iteration`` over dense
+    caches, no kernel) with ``llm`` and ``ssm`` (phase 16's float32
+    LLaMA-7B at 4 layers and LLaMA-68M at full width): three prompts of
+    unequal length, iterations until every row has ``new_tokens`` tokens;
+    each row's tokens equal plain greedy decoding (gap rule of phase 6)."""
+    reqs = make_workload("mix", 3, llm.cfg.vocab_size, seed=1, scale=0.3)
+    lens = [r.prompt_len for r in reqs]
+    toks = np.zeros((3, max(lens)), np.int32)
+    for b, r in enumerate(reqs):
+        toks[b, :lens[b]] = r.prompt
+    max_len = max(lens) + new_tokens * (gamma + 1) + gamma + 2
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    toks = torch.as_tensor(toks, device="cuda")
+    build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, llm_cache = llm.prefill(toks, lengths, max_len)
+    _, ssm_cache = ssm.prefill(toks, lengths, max_len)
+    rows = torch.arange(3, device="cuda")
+    last = torch.argmax(lg[rows, lengths.long() - 1, :llm.cfg.vocab_size],
+                        -1)[:, None].to(torch.int32)
+    emitted = [[int(t)] for t in last[:, 0]]
+    iters = accepted = 0
+    while min(len(e) for e in emitted) < new_tokens:
+        out, out_len, n_acc, llm_cache, ssm_cache, lengths, last = \
+            sd.spec_iteration(llm, ssm, llm_cache, ssm_cache, last, lengths,
+                              gamma)
+        iters += 1
+        accepted += int(n_acc.sum())
+        for b in range(3):
+            emitted[b] += out[b, :int(out_len[b])].tolist()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    refs = {b: greedy_reference(llm, r.prompt, new_tokens)
+            for b, r in enumerate(reqs)}
+    line = dict(llm=f"{llm.cfg.name} {llm.cfg.n_layers} layers float32",
+                ssm=f"{ssm.cfg.name} {ssm.cfg.n_layers}x{ssm.cfg.d_model}",
+                prompts=lens, gamma=gamma, iterations=iters,
+                accepted=accepted, ms_per_iteration=wall * 1e3 / iters,
+                launches=dict(build.LAUNCHES))
+    line.update(lossless_check("spec_iteration", {
+        b: e[:new_tokens] for b, e in enumerate(emitted)}, refs))
+    log(f"speculation API [{report['card']}] " + json.dumps(line))
+    report["spec_api"] = line
+
+
+def train_batch(cfg, step):
+    """Batch ``step`` of the train launcher's stream (seed 0, batch 8,
+    sequence 128) on the card."""
+    toks, labels = TokenStream(seed=0, batch=8, seq_len=128,
+                               vocab=cfg.vocab_size).batch_at(step)
+    return {"tokens": torch.as_tensor(toks, device="cuda"),
+            "labels": torch.as_tensor(labels, device="cuda")}
+
+
+def batch_loss(params, cfg, batch):
+    with torch.no_grad():
+        return float(T.loss_fn(params, cfg, batch)[1]["loss"])
+
+
+def init_params(cfg, unit):
+    """The seed-0 init, with the q/k projections at unit scale (see
+    ``unit_attention``) if ``unit``."""
+    params = T.init_params(cfg, 0, device="cuda")
+    if unit:
+        unit_attention([sd.Bundle(cfg, params)])
+    return params
+
+
+def init_grads(cfg, batch, mode="none", unit=True):
+    """The gradient of every leaf at ``init_params(cfg, unit)`` under
+    ``remat`` mode ``mode`` (a leaf no forward reads: zeros)."""
+    params = init_params(cfg, unit)
+    flat = tensor_leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    total, _ = T.loss_fn(params, cfg, batch, T.Opts(remat=mode))
+    grads = torch.autograd.grad(total, flat, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(flat, grads)]
+
+
+def global_norm(tensors):
+    return math.sqrt(sum(float(torch.sum(torch.square(t.double())))
+                         for t in tensors))
+
+
+def phase_train(report):
+    """``launch/train.py`` on qwen2-0.5b at published widths and depth
+    (24 x 896, vocab 151936), float32, batch 8, sequence 128: an
+    uninterrupted run of ``TRAIN_STEPS`` steps, then a run with a
+    checkpoint every ``TRAIN_CKPT_EVERY`` steps and a failure injected at
+    ``TRAIN_FAIL_AT`` that resumes from the last checkpoint.
+
+    The launcher's init (the reference's) gives q/k elements of std
+    sqrt(d / H), a near-hard-max attention whose gradient grows by orders
+    of magnitude a layer toward the input (its global norm is printed
+    beside the one at unit scale): the global clip then leaves the deep
+    layers' Adam steps under ``eps``, and 30 steps cannot move the loss
+    beyond the batch-to-batch spread.  So learning is checked with the
+    q/k projections at unit scale (``unit_attention``), through the
+    launcher's step function, optimizer and schedule: ``TRAIN_STEPS``
+    steps on the same stream, and the loss on ``TRAIN_EVAL`` held-out
+    batches before and after must fall by ``TRAIN_DROP_SE`` standard
+    errors of its mean.  From the same init, each remat mode: its
+    gradients against none's, and two steps whose second loss (it reads
+    the first step's update) is held to none's."""
+    ckpt = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--device", "cuda", "--arch", "qwen2-0.5b", "--dtype", "float32",
+            "--steps", str(TRAIN_STEPS), "--batch", "8", "--seq-len", "128",
+            "--lr", str(TRAIN_LR), "--warmup", str(TRAIN_WARMUP),
+            "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+    cfg = dataclasses.replace(registry.get("qwen2-0.5b"), dtype="float32")
+    batch = train_batch(cfg, 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    clean = train.main(argv)
+    torch.cuda.synchronize()
+    clean_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        crash = train.main(argv + ["--ckpt-dir", ckpt, "--simulate-failures",
+                                   "--fail-at", str(TRAIN_FAIL_AT)])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    crash_s = time.perf_counter() - t0
+    losses = clean["losses"]
+    check(all(math.isfinite(x) for x in losses + crash["losses"]),
+          "train: a loss is not finite")
+    last_ckpt = (TRAIN_FAIL_AT + 1) // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+    check(crash["resumed_from"] == last_ckpt,
+          f"train: resumed from {crash['resumed_from']}, not {last_ckpt}")
+    after = losses[last_ckpt:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(crash["losses"], after))
+    check(len(crash["losses"]) == len(after) and rel <= TRAIN_RTOL,
+          f"train: resumed losses differ from the uninterrupted run's by "
+          f"{rel:.3g} (tolerance {TRAIN_RTOL})")
+    first = batch_loss(init_params(cfg, False), cfg, batch)
+    check(abs(first - losses[0]) <= TRAIN_RTOL * losses[0],
+          f"train: the launcher's first loss {losses[0]} is not the init's "
+          f"loss {first} on its first batch")
+    grad_norm = {k: global_norm(init_grads(cfg, batch, unit=unit))
+                 for k, unit in (("launcher_init", False),
+                                 ("unit_attention", True))}
+
+    # learning, at unit-scale attention: the launcher's step, optimizer
+    # and schedule on its stream; the loss on held-out batches
+    evals = [train_batch(cfg, TRAIN_EVAL_FROM + i) for i in range(TRAIN_EVAL)]
+    params = init_params(cfg, True)
+    before = [batch_loss(params, cfg, b) for b in evals]
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    state = opt.init(params)
+    step = T.make_train_step(cfg, opt, T.Opts(remat="none"))
+    unit_losses = []
+    for i in range(TRAIN_STEPS):
+        params, state, m = step(params, state, train_batch(cfg, i))
+        unit_losses.append(float(m["loss"]))
+    drops = [b - batch_loss(params, cfg, e) for b, e in zip(before, evals)]
+    del params, state, step
+    mean = statistics.mean(drops)
+    se = statistics.stdev(drops) / math.sqrt(len(drops))
+    held_out = dict(before=statistics.mean(before), mean_drop=mean,
+                    sd=statistics.stdev(drops), se=se, min_drop=min(drops),
+                    max_drop=max(drops))
+    check(all(math.isfinite(x) for x in unit_losses + drops)
+          and mean >= TRAIN_DROP_SE * se,
+          f"train: the held-out loss fell by {mean:.4g} (standard error "
+          f"{se:.3g}), less than {TRAIN_DROP_SE} standard errors")
+
+    # remat: each mode's gradients at the init against none's, then two
+    # steps from the init (the second step's loss reads the first step's
+    # update); peak memory over the steps
+    ref, grad_err = init_grads(cfg, batch), {}
+    for mode in ("full", "dots"):
+        grad_err[mode] = max(
+            (g - r).abs().max().item() / max(1.0, r.abs().max().item())
+            for g, r in zip(init_grads(cfg, batch, mode), ref))
+    del ref
+    remat = {}
+    for mode in ("none", "full", "dots"):
+        params = init_params(cfg, True)
+        opt = AdamW(lr=TRAIN_LR)
+        state = opt.init(params)
+        step = T.make_train_step(cfg, opt, T.Opts(remat=mode))
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params, state, m = step(params, state, batch)
+        loss = float(m["loss"])
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        remat[mode] = dict(loss=loss, second_loss=float(m["loss"]),
+                           ms=(time.perf_counter() - t0) * 1e3,
+                           peak_mem_gb=torch.cuda.max_memory_allocated()
+                           / 2**30, max_rel_grad_err=grad_err.get(mode, 0.0))
+        del params, state, step, m
+    torch.cuda.empty_cache()
+    for mode in ("full", "dots"):
+        r, n = remat[mode], remat["none"]
+        check(r["max_rel_grad_err"] <= REMAT_GRAD_TOL,
+              f"train: remat {mode} gradients differ from none's by "
+              f"{r['max_rel_grad_err']:.3g} x max(1, max|g|)")
+        check(abs(r["second_loss"] - n["second_loss"])
+              <= REMAT_RTOL * abs(n["second_loss"]),
+              f"train: remat {mode} second-step loss {r['second_loss']} "
+              f"against none {n['second_loss']}")
+    line = dict(model=f"{cfg.name} {cfg.n_layers}x{cfg.d_model} vocab "
+                      f"{cfg.vocab_size} {cfg.dtype}", batch=8,
+                seq_len=128, steps=TRAIN_STEPS, lr=TRAIN_LR, losses=losses,
+                resumed_from=crash["resumed_from"],
+                resumed_losses=crash["losses"], resumed_max_rel_diff=rel,
+                tolerance=TRAIN_RTOL, grad_norm_first_batch=grad_norm,
+                unit_attention_losses=unit_losses, held_out=held_out,
+                min_standard_errors=TRAIN_DROP_SE,
+                ms_per_step=clean_s * 1e3 / TRAIN_STEPS,
+                crash_run_s=crash_s, peak_mem_gb=peak / 2**30, remat=remat,
+                remat_tolerances=dict(grad=REMAT_GRAD_TOL,
+                                      second_loss=REMAT_RTOL))
+    log(f"train [{report['card']}] " + json.dumps(line))
+    report["train"] = line
+
+
 # --------------------------------------------------------------- main --
 
 def main():
@@ -1286,11 +1692,18 @@ def main():
         return out
 
     same_content = timed(phase_kernel_checks, timer, report)
-    paged_launches, captured, paged_ms, llama_qkv = timed(phase_main_path,
-                                                          report)
+    paged_launches, captured, paged_ms, llama_qkv, zoo = timed(
+        phase_main_path, report)
+    timed(phase_fleet_path, report, timer, *zoo)
+    del zoo
+    torch.cuda.empty_cache()
     dense_launches, dense_captured, dense_grid = timed(
         phase_dense_main_path, report, paged_ms)
     timed(phase_lossless, report)
+    llm, ssms = timed(phase_fleet_lossless, report)
+    timed(phase_spec_api, report, llm, ssms[0])
+    del llm, ssms
+    torch.cuda.empty_cache()
     timed(phase_chunked, report)
     ops_launches, ops_inputs = timed(
         phase_ops_path, report, captured["fused_paged_verify"],
@@ -1300,6 +1713,7 @@ def main():
     timed(phase_moe_lossless, report)
     flash_launches = timed(phase_flash, report, timer,
                            [mixtral_qkv, llama_qkv])
+    timed(phase_train, report)
     launches = {"paged": paged_launches, "dense": dense_launches,
                 "ops": ops_launches, "flash": flash_launches}
     inputs = {**captured, "verify_attention": dense_captured, **ops_inputs,

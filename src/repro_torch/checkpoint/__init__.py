@@ -1,0 +1,5 @@
+"""repro_torch.checkpoint (PyTorch port of repro.checkpoint)."""
+
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

@@ -2,9 +2,19 @@
 
 One iteration = the SSM drafts ``gamma`` candidate tokens (autoregressive
 decode steps), then the LLM scores ``[last_token, c_1..c_gamma]`` in ONE
-forward and accepts a prefix (greedy: accept while draft == LLM argmax, so
-the output is identical to plain LLM greedy decoding).  Caches are rolled
-back by invalidating rejected slots (segment id -1).
+forward and accepts a prefix:
+
+  greedy mode    accept while draft == LLM argmax, so the output is
+                 identical to plain LLM greedy decoding;
+  sampling mode  Leviathan-style accept/reject: accept c_i with prob
+                 min(1, p_i(c_i)/q_i(c_i)), on the first rejection resample
+                 from norm(max(0, p_i - q_i)).  The output follows the LLM's
+                 distribution.  Draws come from an explicit
+                 ``torch.Generator``.
+
+Caches are rolled back by invalidating rejected slots (segment id -1).
+:func:`spec_iteration` is the engine-free loop over dense caches
+(``Bundle.decode``); the serving engine drives the paged entry points.
 """
 
 from __future__ import annotations
@@ -176,6 +186,68 @@ def draft_tree(ssm: Bundle, cache, last_tokens, lengths, gamma: int, ranks,
     return torch.cat(cands, dim=1), cache
 
 
+# ----------------------------------------------------------------- verify --
+
+def _emit(cand, n_accept, nxt):
+    """(B, gamma+1) output rows: the accepted prefix of ``cand``, then
+    ``nxt`` (the correction or bonus token) at index ``n_accept``, zeros
+    after it."""
+    B, gamma = cand.shape
+    idx = torch.arange(gamma + 1, device=cand.device)[None, :]
+    out = torch.where(idx < n_accept[:, None],
+                      torch.nn.functional.pad(cand, (0, 1)),
+                      torch.zeros((), dtype=cand.dtype, device=cand.device))
+    out[torch.arange(B, device=cand.device), n_accept.long()] = nxt
+    return out
+
+
+def _accepted(ok):
+    """Per row, the length of the all-true prefix of ``ok`` (B, gamma)."""
+    return torch.cumprod(ok.to(torch.int32), 1).sum(1).to(torch.int32)
+
+
+def verify_greedy(llm: Bundle, cache, last_tokens, cand, lengths):
+    """Greedy verification.  Returns (n_accept (B,), out_tokens (B, gamma+1),
+    out_len (B,), cache).  out_tokens[i, :out_len[i]] are the tokens emitted
+    this iteration (accepted prefix + 1 correction/bonus token)."""
+    gamma = cand.shape[1]
+    inp = torch.cat([last_tokens, cand], dim=1)              # (B, gamma+1)
+    logits, cache = llm.decode(cache, inp, lengths)
+    greedy = torch.argmax(logits.float()[..., :llm.cfg.vocab_size],
+                          dim=-1).to(torch.int32)            # (B, gamma+1)
+    # position i of `greedy` predicts the token after input i
+    n_accept = _accepted(greedy[:, :gamma] == cand)
+    bonus = torch.gather(greedy, 1, n_accept[:, None].long())[:, 0]
+    return n_accept, _emit(cand, n_accept, bonus), n_accept + 1, cache
+
+
+def verify_sampling(llm: Bundle, cache, last_tokens, cand, qprobs, lengths,
+                    generator: torch.Generator, temperature: float = 1.0):
+    """Lossless speculative sampling (Leviathan et al.).  qprobs: (B, g, V);
+    the uniforms and the resampled token come from ``generator``."""
+    B, gamma = cand.shape
+    inp = torch.cat([last_tokens, cand], dim=1)
+    logits, cache = llm.decode(cache, inp, lengths)
+    p = logits_to_probs(logits, temperature, llm.cfg.vocab_size)  # (B,g+1,V)
+    p_cand = p[:, :gamma]
+    idx = cand[..., None].long()
+    pc = torch.gather(p_cand, -1, idx)[..., 0]                   # (B, g)
+    qc = torch.gather(qprobs, -1, idx)[..., 0]
+    u = torch.rand((B, gamma), generator=generator, device=cand.device)
+    n_accept = _accepted(
+        u < torch.clamp(pc / torch.clamp(qc, min=1e-30), max=1.0))
+    # residual distribution at the first rejected position
+    rows = torch.arange(B, device=cand.device)
+    pos = torch.clamp(n_accept, max=gamma - 1).long()
+    resid = torch.clamp(p_cand[rows, pos] - qprobs[rows, pos], min=0.0)
+    resid = resid / torch.clamp(resid.sum(-1, keepdim=True), min=1e-30)
+    # when everything is accepted, the bonus is drawn from p[:, gamma]
+    bonus_probs = torch.where((n_accept == gamma)[:, None], p[:, gamma],
+                              resid)
+    nxt = sample(bonus_probs, generator).to(torch.int32)
+    return n_accept, _emit(cand, n_accept, nxt), n_accept + 1, cache
+
+
 # --------------------------------------------------------------- rollback --
 
 def invalidate_slots(cache, new_lengths, upper):
@@ -186,3 +258,39 @@ def invalidate_slots(cache, new_lengths, upper):
     up = upper.to(pos.device)[None, :, None]
     seg.masked_fill_((pos >= nl) & (pos < up), -1)
     return cache
+
+
+# ------------------------------------------------------------- iteration --
+
+def spec_iteration(llm: Bundle, ssm: Bundle, llm_cache, ssm_cache,
+                   last_tokens, lengths, gamma, generator=None,
+                   temperature=0.0):
+    """One full speculation+verification iteration for a batch over dense
+    caches.  Returns (out_tokens, out_len, n_accept, llm_cache, ssm_cache,
+    new_lengths, new_last).  Sampling (``temperature > 0``) draws from
+    ``generator``."""
+    sampling = temperature > 0.0
+    cand, qprobs, ssm_cache = draft(ssm, ssm_cache, last_tokens, lengths,
+                                    gamma, generator, temperature,
+                                    collect_probs=sampling)
+    if sampling:
+        n_acc, out, out_len, llm_cache = verify_sampling(
+            llm, llm_cache, last_tokens, cand, qprobs, lengths, generator,
+            temperature)
+    else:
+        n_acc, out, out_len, llm_cache = verify_greedy(
+            llm, llm_cache, last_tokens, cand, lengths)
+    new_lengths = lengths + out_len
+    # the LLM cache holds K/V for [last, c_1..c_gamma] at positions
+    # lengths..lengths+gamma: keep last + the accepted prefix (the
+    # correction token's KV enters next iteration as the new `last`)
+    llm_cache = invalidate_slots(llm_cache, lengths + 1 + n_acc,
+                                 lengths + gamma + 1)
+    # SSM catch-up: the draft loop never wrote c_gamma's KV.  One batched
+    # decode re-feeds this iteration's outputs at positions lengths+1..,
+    # filling any hole; rejected-slot writes are invalidated after
+    _, ssm_cache = ssm.decode(ssm_cache, out, lengths + 1)
+    ssm_cache = invalidate_slots(ssm_cache, new_lengths + 1,
+                                 lengths + gamma + 2)
+    new_last = torch.gather(out, 1, (out_len - 1)[:, None].long())
+    return out, out_len, n_acc, llm_cache, ssm_cache, new_lengths, new_last

@@ -118,3 +118,22 @@ def swiglu(x, w_gate, w_up, w_down):
 
 def embed(tokens, table):
     return table[tokens.long()]
+
+
+def softmax_cross_entropy(logits, labels, mask=None, vocab_size: int = 0):
+    """Mean cross-entropy over the valid positions (``mask``; all when
+    None), in float32.  Logits past ``vocab_size`` (vocab padding) are
+    pushed to ``NEG_INF`` before the log-sum-exp."""
+    logits = logits.float()
+    if vocab_size and logits.shape[-1] > vocab_size:
+        pad = torch.zeros(logits.shape[-1], dtype=torch.float32,
+                          device=logits.device)
+        pad[vocab_size:] = NEG_INF
+        logits = logits + pad
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -73,6 +73,28 @@ def init_params(spec, generator: torch.Generator, dtype, device):
     return tree_map(make, spec)
 
 
+def tensor_leaves(tree):
+    """The tensors of a dict/list/tuple tree, in its iteration order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensor_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensor_leaves(v)]
+    return [tree]
+
+
+def map_tensors(fn, tree, *rest):
+    """``fn`` over the leaves of trees of one structure (dicts, lists,
+    tuples and named tuples), leaf by leaf."""
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [map_tensors(fn, *xs) for xs in zip(tree, *rest)]
+        return (type(tree)(*out) if hasattr(tree, "_fields")
+                else type(tree)(out))
+    return fn(tree, *rest)
+
+
 def count(spec) -> int:
     return sum(math.prod(p.shape) for p in leaves(spec))
 
@@ -109,3 +131,23 @@ def from_jax_numpy(tree, cfg, device, dtype=None):
         for unit in range(cfg.n_units) for i, kind in enumerate(cfg.unit)
     ] + [block(tree[f"tail{i}_{kind}"]) for i, kind in enumerate(cfg.tail)]
     return out
+
+
+def reference_key(key: str, cfg):
+    """The reference tree's path of the port leaf at ``key`` (a "/"-joined
+    path such as ``layers/5/wq`` or ``1/mu/layers/5/wq``), and the index
+    along the reference's leading unit axis (None outside ``scan``): the
+    mapping of :func:`from_jax_numpy`, layer ``n`` of the body being unit
+    ``n // len(unit)``'s block ``n % len(unit)``."""
+    parts = key.split("/")
+    if "layers" not in parts:
+        return key, None
+    i = parts.index("layers")
+    n, width = int(parts[i + 1]), len(cfg.unit)
+    if n < cfg.n_units * width:
+        name, unit = ["scan", f"u{n % width}_{cfg.unit[n % width]}"], \
+            n // width
+    else:
+        j = n - cfg.n_units * width
+        name, unit = [f"tail{j}_{cfg.tail[j]}"], None
+    return "/".join(parts[:i] + name + parts[i + 2:]), unit

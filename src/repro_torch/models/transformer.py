@@ -24,31 +24,58 @@ Entry points
   prefill(...)             forward + cache construction
   decode_step(...)         T new tokens per row against a cache
   verify_step_packed(...)  SPIN packed verification through an override
+  loss_fn / make_train_step  training (plain autograd), ``Opts.remat``
+                             checkpointing each unit of the block stack
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import quant
 from repro_torch.models import config as C
 from repro_torch.models import mamba2, moe, xlstm
 from repro_torch.models import params as pp
-from repro_torch.models.layers import attention, embed, rms_norm, rope, swiglu
+from repro_torch.models.layers import (attention, embed, rms_norm, rope,
+                                       softmax_cross_entropy, swiglu)
 from repro_torch.models.params import P
 
 ATTN_KINDS = (C.ATTN, C.MOE, C.SHARED_ATTN)
 ATTN_LEAVES = ("k", "v", "pos", "seg", "k_scale", "v_scale")
 
 
+REMAT = ("full", "dots", "none")
+
+
 @dataclasses.dataclass(frozen=True)
 class Opts:
     q_block: int = 512  # query-block size of chunked attention
     ssd_chunk: int = 128  # mamba2 / mlstm chunk length
+    # activation checkpointing of each unit of the block stack, training
+    # only (a forward without a cache, under autograd):
+    # "full" recomputes the unit in the backward, "dots" keeps its matmul
+    # outputs (aten.mm, the analogue of the reference's
+    # dots_with_no_batch_dims_saveable) and recomputes the rest
+    remat: str = "full"
+
+    def __post_init__(self):
+        if self.remat not in REMAT:
+            raise ValueError(f"unknown remat {self.remat!r} "
+                             f"(choose from {', '.join(REMAT)})")
+
+
+def _remat_context(remat: str):
+    if remat == "dots":
+        return functools.partial(
+            ckpt.create_selective_checkpoint_contexts,
+            [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+    return ckpt.noop_context_fn
 
 
 def block_kinds(cfg: C.ModelConfig):
@@ -349,24 +376,43 @@ def _recurrent_block(kind, p, x, cfg, opts, cache, slot):
 def _run_stack(params, x, cfg, opts, *, positions, segments, cache, widx,
                attend_cache=True, attn_override=None):
     """Every block in order.  Returns (x, (moe_aux, moe_z)) summed over the
-    MoE blocks."""
+    MoE blocks.  A forward with no cache under autograd checkpoints each
+    unit as ``opts.remat`` says; the tail runs plain, as in the
+    reference."""
     shared = params.get("shared_attn")
+    kinds, slots = block_kinds(cfg), cache_slots(cfg)
+
+    def blocks(x, lo, hi):
+        am = az = 0.0
+        for kind, slot, p in zip(kinds[lo:hi], slots[lo:hi],
+                                 params["layers"][lo:hi]):
+            if kind not in ATTN_KINDS:
+                x = _recurrent_block(kind, p, x, cfg, opts, cache, slot)
+                continue
+            if kind == C.SHARED_ATTN:
+                p = dict(shared, ln1=p["ln1"])  # private per-application norm
+            kv = None if cache is None else layer_view(cache, slot)
+            x, (a, z) = _attn_block(p, x, cfg, opts, positions=positions,
+                                    segments=segments, kv_cache=kv,
+                                    widx=widx, is_moe=kind == C.MOE,
+                                    attend_cache=attend_cache,
+                                    attn_override=attn_override)
+            am, az = am + a, az + z
+        return x, am, az
+
+    if not (cache is None and opts.remat != "none"
+            and torch.is_grad_enabled()):
+        x, am, az = blocks(x, 0, len(kinds))
+        return x, (am, az)
+    width = len(cfg.unit)
     am = az = 0.0
-    for kind, slot, p in zip(block_kinds(cfg), cache_slots(cfg),
-                             params["layers"]):
-        if kind not in ATTN_KINDS:
-            x = _recurrent_block(kind, p, x, cfg, opts, cache, slot)
-            continue
-        if kind == C.SHARED_ATTN:
-            p = dict(shared, ln1=p["ln1"])  # private per-application norm
-        kv = None if cache is None else layer_view(cache, slot)
-        x, (a, z) = _attn_block(p, x, cfg, opts, positions=positions,
-                                segments=segments, kv_cache=kv, widx=widx,
-                                is_moe=kind == C.MOE,
-                                attend_cache=attend_cache,
-                                attn_override=attn_override)
+    for u in range(cfg.n_units):
+        x, a, z = ckpt.checkpoint(blocks, x, u * width, (u + 1) * width,
+                                  use_reentrant=False,
+                                  context_fn=_remat_context(opts.remat))
         am, az = am + a, az + z
-    return x, (am, az)
+    x, a, z = blocks(x, cfg.n_units * width, len(kinds))
+    return x, (am + a, az + z)
 
 
 # ------------------------------------------------------------ entrypoints --
@@ -478,3 +524,64 @@ def verify_step_packed(params, cfg, cache, *, tokens, positions, segments,
                       segments=segments, cache=cache, widx=None,
                       attn_override=attn_override)
     return _logits(cfg, params, x), cache
+
+
+# ------------------------------------------------------------- training --
+
+def loss_fn(params, cfg, batch, opts: Opts = Opts()):
+    """Next-token loss of one batch (``tokens`` or ``inputs_embeds``,
+    ``labels``, optional ``mask`` and ``prefix_embeds``): logits[t] predicts
+    labels[t], the prefix positions dropped.  Returns (total, metrics),
+    total = loss + 0.01 * moe_aux + 1e-3 * moe_z."""
+    logits, (aux, z) = apply(
+        params, cfg, tokens=batch.get("tokens"),
+        inputs_embeds=batch.get("inputs_embeds"),
+        prefix_embeds=batch.get("prefix_embeds"), opts=opts)
+    if batch.get("prefix_embeds") is not None:
+        logits = logits[:, batch["prefix_embeds"].shape[1]:]
+    loss = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"),
+                                 cfg.vocab_size)
+    total = loss + 0.01 * aux + 1e-3 * z
+    return total, {"loss": loss, "moe_aux": aux, "moe_z": z}
+
+
+def decay_mask(params, cfg):
+    """Per leaf, whether AdamW decays it: the reference decays a leaf of
+    rank >= 2 of its own tree, where every leaf of a unit of the block
+    stack carries a leading unit axis.  So each leaf of the body's layers
+    is decayed (norm weights and QKV biases included); the tail's layers,
+    ``final_norm`` and ``shared_attn`` keep the rule on their own rank."""
+    body = cfg.n_units * len(cfg.unit)
+    out = pp.map_tensors(lambda p: p.dim() >= 2, params)
+    out["layers"] = [pp.map_tensors(lambda p: True, layer) if i < body
+                     else out["layers"][i]
+                     for i, layer in enumerate(params["layers"])]
+    return out
+
+
+def make_train_step(cfg, optimizer, opts: Opts = Opts()):
+    """A function ``(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: forward, backward (autograd over every leaf), the
+    optimizer's update with the reference's decay rule (:func:`decay_mask`)
+    and the loss metrics plus ``total``.  Params are updated in place; they
+    take gradients only inside the step."""
+    def train_step(params, opt_state, batch):
+        flat = pp.tensor_leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        try:
+            total, metrics = loss_fn(params, cfg, batch, opts)
+            grads = torch.autograd.grad(total, flat, allow_unused=True)
+        finally:
+            for p in flat:
+                p.requires_grad_(False)
+        # a leaf no forward reads (shared_attn's own ln1) takes a zero grad
+        grads = iter([torch.zeros_like(p) if g is None else g
+                      for p, g in zip(flat, grads)])
+        grads = pp.map_tensors(lambda _: next(grads), params)
+        params, opt_state = optimizer.update(params, grads, opt_state,
+                                             decay=decay_mask(params, cfg))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["total"] = total.detach()
+        return params, opt_state, metrics
+    return train_step

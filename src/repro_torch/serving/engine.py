@@ -63,7 +63,8 @@ from repro_torch.models import transformer as T
 from repro_torch.serving.paged import paged_compatible
 from repro_torch.serving.pool import DenseCachePool, PagedCachePool
 from repro_torch.serving.scheduler import ContinuousScheduler, SchedulerConfig
-from repro_torch.serving.stats import slo_summary
+from repro_torch.serving.stats import (EngineStats, expected_time_per_token,
+                                       slo_headroom, slo_summary)
 
 
 def _bucket(n: int, align: int = 16) -> int:
@@ -343,6 +344,88 @@ class SpinEngine:
         self._unstamped: set = set()       # rids awaiting first_token_time
 
     # ------------------------------------------------------------ admin --
+    @property
+    def waiting(self) -> List[Request]:
+        """Arrived-but-not-admitted requests (scheduler queue view)."""
+        return self.scheduler.waiting
+
+    # ------------------------------------------------- replica-level view --
+    # Load and occupancy the multi-replica router (serving/router.py) reads
+    # at dispatch time: host-side bookkeeping only, no tensor work.
+    def outstanding_tokens(self) -> int:
+        """Tokens of work still owed over every submitted, unfinished
+        request: the context still to ingest plus the output still to
+        emit."""
+        total = 0
+        pre = self.scheduler.prefilling
+        for r in self.scheduler.outstanding_requests():
+            emitted = len(r.emitted or [])
+            total += max(0, r.max_new - max(0, emitted - 1))
+            if r.rid in pre:
+                total += max(0,
+                             self.scheduler.prefill_target(r) - r.prefill_pos)
+            elif not self.llm_pool.has(r.rid):
+                # no row yet: the whole context must still be ingested
+                total += self.scheduler.prefill_target(r)
+        return total
+
+    def kv_free_cells(self) -> int:
+        """Admissible KV headroom in cells: the scheduler budget minus the
+        running set's projected demand, which is what admission checks.
+        Paged, it is capped by the pool's free blocks too; the blocks the
+        pool holds above the budget (its one-full-row floor) are not
+        admissible and must not attract p2c dispatches."""
+        demand = sum(self.scheduler.kv_need(r)
+                     for r in self.scheduler.running.values())
+        free = max(0, self.scheduler.kv_budget - demand)
+        if self.paged:
+            free = min(free,
+                       self.llm_pool.free_blocks * self.ecfg.block_size)
+        return free
+
+    def kv_occupancy(self) -> float:
+        """Fraction of the admissible KV budget currently committed."""
+        budget = max(1, self.scheduler.kv_budget)
+        return 1.0 - self.kv_free_cells() / budget
+
+    def snapshot(self) -> EngineStats:
+        """The engine's typed dispatch-time telemetry, embedding the
+        scheduler snapshot.  ``slo_headroom`` is the slack to the most
+        urgent outstanding deadline minus the estimated time to drain the
+        token backlog."""
+        sched = self.scheduler.snapshot()
+        out = self.outstanding_tokens()
+        tpt = expected_time_per_token(self.sim_time, self.accepted_tokens,
+                                      self.cost.llm_time_per_token)
+        return EngineStats(
+            sim_time=self.sim_time,
+            outstanding_tokens=out,
+            kv_free_cells=self.kv_free_cells(),
+            kv_occupancy=self.kv_occupancy(),
+            accepted_tokens=self.accepted_tokens,
+            slo_headroom=slo_headroom(sched.min_deadline, self.sim_time,
+                                      out, tpt),
+            scheduler=sched)
+
+    def release_queued(self, rids: Optional[Sequence[int]] = None, *,
+                       include_pending: bool = False) -> List[Request]:
+        """Hand queued requests to another replica (work stealing and
+        drain).  Only waiting requests leave, and with ``include_pending``
+        the not-yet-arrived ones; row owners keep decoding here.  A
+        released request holds no pool row, so the target re-prefills it
+        from the ``Request``.  The rid leaves every engine-side index, so
+        fleet stats (a union of ``requests``) count it once."""
+        out = self.scheduler.release_queued(rids,
+                                            include_pending=include_pending)
+        for r in out:
+            if self.llm_pool.has(r.rid):
+                raise RuntimeError(
+                    f"released request {r.rid} still owns a KV row")
+            self.requests.pop(r.rid, None)
+            self._unstamped.discard(r.rid)
+            self._accept_by_req.pop(r.rid, None)
+        return out
+
     def add_requests(self, reqs: Sequence[Request]):
         """Submit requests; arrival timestamps are honoured on the sim
         clock."""

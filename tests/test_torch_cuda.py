@@ -241,3 +241,50 @@ def test_dense_engine_launches_verify_attention(gen):
     verified = sum(1 for rec in eng.slot_log if rec.get("active"))
     assert build.LAUNCHES["verify_attention"] == \
         verified * llm.cfg.n_layers > 0
+
+
+def test_router_over_two_cuda_engines(gen):
+    """A two-replica fleet on the card (reduced zoo, paged KV, fused
+    kernels, built as the serve launcher builds one): every request
+    finishes, both replicas serve, and the fleet launched both fused
+    kernels."""
+    from repro_torch.data.workloads import make_workload
+    from repro_torch.launch.serve import build_fleet, build_zoo
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.router import Router, RouterConfig
+
+    llm, ssms = build_zoo(256, 0, 3, "cuda")
+    reqs = make_workload("mix", 6, 256, seed=0, scale=0.25,
+                         arrival_rate=300.0)
+    engines = build_fleet(llm, ssms, reqs, EngineConfig(
+        capacity=6, fused_kernels="on"), ["general", "general"])
+    router = Router(engines, RouterConfig(policy="p2c", steal="on"))
+    router.submit(reqs)
+    build.LAUNCHES.clear()
+    stats = router.run(max_slots=400)
+    assert stats["finished"] == 6
+    assert all(n > 0 for n in stats["dispatched"])
+    assert build.LAUNCHES["fused_paged_verify"] > 0
+    assert build.LAUNCHES["fused_paged_decode"] > 0
+
+
+def test_train_step_on_cuda(gen):
+    """One training step of a reduced qwen2 on the card: a finite loss
+    that falls on a second step over the same batch."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(registry.reduced_for("qwen2-0.5b"),
+                              dtype="float32")
+    params = T.init_params(cfg, 0, device="cuda")
+    opt = AdamW(lr=1e-3)
+    step = T.make_train_step(cfg, opt, T.Opts(remat="dots"))
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+    batch = {"tokens": toks.cuda(), "labels": toks.roll(-1, 1).cuda()}
+    state = opt.init(params)
+    params, state, m0 = step(params, state, batch)
+    params, state, m1 = step(params, state, batch)
+    assert torch.isfinite(m0["loss"]) and float(m1["loss"]) < float(m0["loss"])
