@@ -121,7 +121,34 @@ script then exits non-zero without its last line.  Phases:
    ``TRAIN_DROP_SE`` standard errors; then each ``remat`` mode: its
    gradients at the init against none's, and two steps from the init
    whose second loss (it reads the first step's update) is held to
-   none's; ms of the second step and peak memory.
+   none's; ms of the second step and peak memory;
+18. tile configs (after phase 14, on phase 4's zoo): ``kernels/autotune``
+   tunes every key of ``TUNE_KEYS`` (LLaMA-7B verify and decode, the three
+   SSMs' decode, bf16 KV, and LLaMA-7B in int8) on the card into this
+   run's cache (``TUNE_CACHE``; every other phase runs with it empty, on
+   the kernels' own plans), each on two calls: phase 4's largest call
+   where the key is its geometry, else the synthetic pool, and a
+   long-context call (``LONG_VERIFY_LENS``: a list of 4096 entries;
+   ``LONG_DECODE_LENS``: rows of 32k and 4k tokens); every candidate held
+   to the plain version on both before it may win; kept: a candidate that
+   beats the default on both calls by more than its spread, else the
+   default; one ``autotune`` line a key (every candidate's times and
+   error, the fastest, the config kept); the configs kept for #1 and #2
+   beside the default on phase 4's largest calls (``tuned on the path's
+   largest call`` lines) and on the long-context calls (``tile configs on
+   a long-context call`` lines: error and time of each); a paged serving
+   pass whose engine reads the tuned cache (its configs, cache hits,
+   launches, wall ms per slot); float32 losslessness at 4 layers on the
+   tuned cache;
+19. the sharded fleet (after phase 15, on its zoo): a lot fleet without
+   meshes, then with each replica under ``use_rules`` on its 1x1 CUDA
+   sub-mesh (``launch.mesh``, a world-1 process group) and
+   ``serve_rules()``: tokens and router stats must be equal, #1 and #2
+   launched;
+20. the dry-run (after phase 17; host only, in a process of its own):
+   ``launch/dryrun.py`` on ``DRYRUN_CELLS`` (qwen2-0.5b x decode_32k on
+   the 16x16 and 2x16x16 fake meshes); each record and its wall seconds;
+   every cell ``ok``.
 
 The last three lines are the kernels JSON, the card line of
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and
@@ -148,6 +175,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+# imported here, not at the sharded fleet's first constrain call, so that
+# no timed run pays for the import
+import torch.distributed.tensor  # noqa: E402,F401
 import torch.nn.functional as F  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
@@ -156,12 +186,13 @@ from repro_torch.configs import registry, spin_llama  # noqa: E402
 from repro_torch.core import spec_decode as sd  # noqa: E402
 from repro_torch.data.pipeline import TokenStream  # noqa: E402
 from repro_torch.data.workloads import make_workload  # noqa: E402
-from repro_torch.kernels import (build, cases,  # noqa: E402
+from repro_torch.distributed import sharding  # noqa: E402
+from repro_torch.kernels import (autotune, build, cases,  # noqa: E402
                                  decode_attention, flash_attention,
                                  fused_decode, fused_verify, ops,
                                  paged_attention, quant, verify_attention)
 from repro_torch.kernels.ref import tree_mask_term  # noqa: E402
-from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch import mesh, train  # noqa: E402
 from repro_torch.launch.serve import build_fleet, make_engine  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.layers import (attention, embed,  # noqa: E402
@@ -234,6 +265,31 @@ TRAIN_LR, TRAIN_WARMUP = 3e-4, 5
 TRAIN_EVAL, TRAIN_EVAL_FROM, TRAIN_DROP_SE = 16, 1000, 5.0
 REMAT_GRAD_TOL, REMAT_RTOL = 1e-4, 1e-5
 PAGED = [n for n, (_, _, path) in SOURCES.items() if path == "paged"]
+# the tile configs' cache of this run (the engines read it through
+# autotune.CACHE_PATH): empty for every phase but the autotune phase, so
+# the others launch the kernels' own plans
+TUNE_CACHE = os.path.join(ROOT, "build", "smoke_tune_cache.json")
+# the autotune phase's keys: kind, (H, Kh, D), kv dtype; gamma_max 4 and
+# block size 16 as the serving paths.  LLaMA-7B verify and decode, the
+# three SSMs' decode (their drafts and catch-up), bf16 KV; LLaMA-7B in int8
+TUNE_GAMMA, TUNE_BS = 4, 16
+TUNE_KEYS = [("verify", (32, 32, 128), "bf16"),
+             ("decode", (32, 32, 128), "bf16"),
+             ("decode", (12, 12, 64), "bf16"),
+             ("decode", (16, 16, 64), "bf16"),
+             ("decode", (16, 16, 96), "bf16"),
+             ("verify", (32, 32, 128), "int8"),
+             ("decode", (32, 32, 128), "int8")]
+# the autotune phase's long-context calls: LLaMA-7B verify over six
+# requests of 2.5-8k tokens (2093 live blocks of 16, a list of 4096
+# entries with its padding), LLaMA-616M's draft step over rows of 32k
+# and 4k tokens
+LONG_VERIFY_LENS = [8000, 6500, 5000, 7000, 4500, 2500]
+LONG_DECODE_LENS = [32767, 4095]
+# the dry-run phase's cells (arch, shape, meshes), each in a process of
+# its own (its fake 512-rank group): qwen2-0.5b's decode on both
+# production meshes (the whole table is launch/dryrun.py --all)
+DRYRUN_CELLS = [("qwen2-0.5b", "decode_32k", ["--both-meshes"])]
 
 
 def log(*a):
@@ -1302,14 +1358,16 @@ def phase_ops_path(report, paged_verify, paged_decode, dense_grid):
 
 # -------------------------------------------------------------- fleet --
 
-def fleet(llm, ssms, policy, steal="off", classes=None):
+def fleet(llm, ssms, policy, steal="off", classes=None, router_kw=None):
     """A ``Router`` over two paged engines built as the serve launcher
     builds a fleet (``launch.serve.build_fleet``: the zoo's bundles and the
     one card shared, pools and selectors per replica, ``FLEET_CAPACITY``
     split evenly), fused kernels on; serves ``FLEET_REQUESTS`` requests of
     the mix workload with Poisson arrivals to the end.  Checks that every
     request finishes, that each replica serves at least one and that the
-    fleet's tokens are the sum of its replicas'.  Returns (router, line)."""
+    fleet's tokens are the sum of its replicas'.  ``router_kw``: the
+    Router's keyword arguments (sub-meshes and rules).  Returns (router,
+    line)."""
     reqs = make_workload("mix", FLEET_REQUESTS, llm.cfg.vocab_size, seed=0,
                          scale=0.3, arrival_rate=FLEET_RATE)
     classes = classes or ["general", "general"]
@@ -1318,7 +1376,8 @@ def fleet(llm, ssms, policy, steal="off", classes=None):
         classes)
     router = Router(engines, RouterConfig(
         policy=policy, steal=steal,
-        classes=",".join(classes) if set(classes) != {"general"} else ""))
+        classes=",".join(classes) if set(classes) != {"general"} else ""),
+        **(router_kw or {}))
     router.submit(reqs)
     torch.cuda.synchronize()
     build.LAUNCHES.clear()
@@ -1647,6 +1706,243 @@ def phase_train(report):
     report["train"] = line
 
 
+# ------------------------------------------------- tile configs, mesh --
+
+def config_check(name, a, timer, configs):
+    """``name`` on the inputs ``a`` under each (label, config): its error
+    against the plain version (held to the kernels' tolerance) and its
+    time, the launches made here not counted."""
+    kern, plain = KERNELS[name][:2]
+    before = build.LAUNCHES[name]
+    ref = plain(**a)
+    scale = max(1.0, ref.float().abs().max().item())
+    out = {}
+    for label, cfg in configs:
+        got = kern(**a, config=cfg)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = (2.0 ** -6 if got.dtype == torch.bfloat16 else 1e-4) * scale
+        ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+        out[label] = dict(config=dataclasses.asdict(cfg), max_abs_err=err,
+                          tol=tol, ok=ok,
+                          ms=timer(lambda: kern(**a, config=cfg)))
+    build.LAUNCHES[name] = before
+    return out
+
+
+def phase_autotune(report, timer, llm, ssms, captured):
+    """Tile configs tuned on the card (``kernels/autotune.py``), in this
+    run's cache (:data:`TUNE_CACHE`): every key of :data:`TUNE_KEYS` on
+    two calls, the paged path's own largest call (phase 4's: LLaMA-7B's
+    verify, LLaMA-616M's catch-up) where the key is its geometry, else the
+    synthetic pool, and a long-context call; each candidate held to the
+    plain version on both before it may win (one that disagrees raises).
+    Then the configs kept for #1 and #2 beside the default on the path's
+    calls and on the long-context calls, each held to the plain version
+    and timed; a paged serving pass of the main path's zoo
+    whose engine reads the tuned cache (its launches and wall ms per
+    slot; the cache must be hit); and float32 losslessness at 4 layers on
+    the tuned cache, as phase 6.  The cache is removed after, so later
+    phases launch the plans."""
+    autotune.CACHE_STATS.update(hits=0, misses=0)
+    # each key tunes on two calls: the paged path's largest call where the
+    # key is its geometry (LLaMA-7B's verify, LLaMA-616M's catch-up, bf16
+    # KV), else the reference's synthetic pool; and a long-context call
+    on_path = {}
+    for name, kind in (("fused_paged_verify", "verify"),
+                       ("fused_paged_decode", "decode")):
+        a = captured[name]
+        geom = (a["q"].shape[-2], a["k_pool"].shape[2], a["q"].shape[-1])
+        on_path[(kind, geom, "bf16")] = a
+    check(all(k in TUNE_KEYS for k in on_path),
+          f"the path's calls {list(on_path)} have no key to tune")
+    gen = torch.Generator().manual_seed(19)
+    lines, long_calls = [], {}
+    for kind, (H, Kh, D), kv in TUNE_KEYS:
+        t0 = time.perf_counter()
+        base = on_path.get((kind, (H, Kh, D), kv))
+        if base is None:
+            base = autotune.synthetic_call(kind, H, Kh, D, TUNE_GAMMA,
+                                           TUNE_BS, "linear", kv, 0,
+                                           torch.device("cuda"))
+        long = (cases.verify_inputs(gen, LONG_VERIFY_LENS, TUNE_GAMMA, H, Kh,
+                                    D, TUNE_BS, kv, False)
+                if kind == "verify" else
+                cases.decode_inputs(gen, LONG_DECODE_LENS, 1, H, Kh, D,
+                                    TUNE_BS, kv))
+        won = autotune.autotune(kind, H=H, Kh=Kh, D=D, gamma_max=TUNE_GAMMA,
+                                block_size=TUNE_BS, kv_dtype=kv,
+                                path=TUNE_CACHE, calls=[base, long])
+        key = autotune.tune_key(kind, H=H, Kh=Kh, D=D, gamma_max=TUNE_GAMMA,
+                                block_size=TUNE_BS, kv_dtype=kv,
+                                device="cuda")
+        entry = autotune.load_cache(TUNE_CACHE)[key]
+        line = dict(key=key, calls=[
+            "path" if (kind, (H, Kh, D), kv) in on_path else "synthetic",
+            shape_of(long)], kept=dataclasses.asdict(won),
+            us=entry["us"], default_us=entry["default_us"],
+            default_min_us=entry["default_min_us"],
+            fastest=entry["fastest"], trials=entry["trials"],
+            s=time.perf_counter() - t0)
+        log(f"autotune [{report['card']}] " + json.dumps(line))
+        lines.append(line)
+        if (kind, (H, Kh, D), kv) in on_path:
+            long_calls[kind] = long
+        del base, long
+        torch.cuda.empty_cache()
+    cache = autotune.load_cache(TUNE_CACHE)
+
+    def winner(kind, H, Kh, D):
+        e = cache[autotune.tune_key(kind, H=H, Kh=Kh, D=D,
+                                    gamma_max=TUNE_GAMMA, block_size=TUNE_BS,
+                                    device="cuda")]
+        return autotune.FusedConfig(e["bq"], e["bk"], e["depth"])
+
+    path_calls = {}
+    for name, kind in (("fused_paged_verify", "verify"),
+                       ("fused_paged_decode", "decode")):
+        a = captured[name]
+        H, D = a["q"].shape[-2:]
+        Kh = a["k_pool"].shape[2]
+        cfg = winner(kind, H, Kh, D)
+        rec = config_check(name, a, timer, [
+            ("default", autotune.DEFAULT_CONFIG), ("tuned", cfg)])
+        check(all(r["ok"] for r in rec.values()),
+              f"{name} disagrees on the paged path's largest call: {rec}")
+        rec["shape"] = shape_of(a)
+        log(f"tuned on the path's largest call {name} "
+            f"[{report['card']}] " + json.dumps(rec))
+        path_calls[name] = rec
+    # the kept configs and the default on the long-context calls they were
+    # tuned on (the tuner held every candidate to the plain version there)
+    for name, kind in (("fused_paged_verify", "verify"),
+                       ("fused_paged_decode", "decode")):
+        a = long_calls.pop(kind)
+        H, D = a["q"].shape[-2:]
+        rec = config_check(name, a, timer, [
+            ("default", autotune.DEFAULT_CONFIG),
+            ("kept", winner(kind, H, a["k_pool"].shape[2], D))])
+        check(all(r["ok"] for r in rec.values()),
+              f"{name} disagrees on a long-context call: {rec}")
+        rec["shape"] = shape_of(a)
+        log(f"tile configs on a long-context call {name} "
+            f"[{report['card']}] " + json.dumps(rec))
+        long_calls[name] = rec
+        del a
+    build.LAUNCHES.clear()
+    autotune.CACHE_STATS.update(hits=0, misses=0)
+    eng, stats, wall = serve(llm, ssms, 6, 0.3, capacity=6)
+    launches = dict(build.LAUNCHES)
+    hits = autotune.CACHE_STATS["hits"]
+    check(hits > 0, "the tuned engine never hit the tile cache")
+    for name in PAGED:
+        check(launches.get(name, 0) > 0, f"{name} never launched (tuned)")
+    served = dict(
+        configs=dict(llm_verify=dataclasses.asdict(eng.fused_llm_verify),
+                     llm_decode=dataclasses.asdict(eng.fused_llm_decode),
+                     ssm_decode=[dataclasses.asdict(c)
+                                 for c in eng.fused_ssm_decode]),
+        cache_stats=dict(autotune.CACHE_STATS), launches=launches,
+        slots=len(eng.slot_log), wall_s=wall,
+        wall_ms_per_slot=wall * 1e3 / len(eng.slot_log),
+        finished=stats["scheduler"]["finished"])
+    log(f"tuned paged serving pass [{report['card']}] " + json.dumps(served))
+    del eng
+    f32, f32_ssms = full_zoo("float32", llm_layers=4)
+    unit_attention([f32] + f32_ssms)
+    autotune.CACHE_STATS.update(hits=0, misses=0)
+    lossless, _, _ = lossless_run(f32, f32_ssms, "on")
+    check(autotune.CACHE_STATS["hits"] > 0,
+          "the float32 engine never hit the tile cache")
+    bad = [d for d in lossless["divergences"] if d["gap"] >= 1e-4]
+    check(not bad, f"tuned: tokens differ from greedy decoding at top-2 "
+          f"gaps >= 1e-4: {bad}")
+    log("lossless on the tuned cache (float32, LLM 4 layers, unit-scale "
+        "attention) " + json.dumps(lossless))
+    os.remove(TUNE_CACHE)
+    report["autotune"] = dict(keys=lines, path_calls=path_calls,
+                              long_calls=long_calls, serving=served,
+                              lossless=lossless)
+    del f32, f32_ssms
+    torch.cuda.empty_cache()
+
+
+def phase_sharded_fleet(report, llm, ssms):
+    """Phase 15's float32 zoo (LLaMA-7B at 4 layers, unit-scale attention)
+    behind the router, lot, twice: without meshes, then with each
+    replica stepping under ``use_rules`` on its sub-mesh
+    (``launch.mesh.replica_submeshes`` of a two-replica local mesh on the
+    one card: two 1x1 CUDA meshes of a world-1 process group, destroyed
+    after) and ``serve_rules()``.  Tokens and router stats (host wall
+    times aside) must be equal, and both fused kernels launch."""
+    import torch.distributed as dist
+
+    def outcome(router):
+        stats = router.stats()
+        stats["replica_stats"] = [
+            {k: v for k, v in r.items() if k != "wall_time"}
+            for r in stats["replica_stats"]]
+        return stats, {r.rid: list(r.emitted) for eng in router.engines
+                       for r in eng.requests.values()}
+
+    router, plain = fleet(llm, ssms, "lot")
+    plain_stats, plain_tokens = outcome(router)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        subs = mesh.replica_submeshes(mesh.make_local_mesh(
+            replicas=2, device_type="cuda"))
+        router, line = fleet(llm, ssms, "lot", router_kw=dict(
+            submeshes=subs, rules=sharding.serve_rules()))
+        stats, tokens = outcome(router)
+    finally:
+        dist.destroy_process_group()
+    check(not sharding.active(), "the replicas' rules outlived the fleet")
+    for name in PAGED:
+        check(line["launches"].get(name, 0) > 0,
+              f"sharded fleet: {name} never launched")
+    check(tokens == plain_tokens, "the sharded fleet's tokens differ from "
+          "the unsharded fleet's")
+    check(stats == plain_stats, f"the sharded fleet's router stats differ: "
+          f"{stats} against {plain_stats}")
+    out = dict(meshes=[str(m) for m in subs], rules="serve_rules()",
+               sharded=line, unsharded=plain, tokens_equal=True,
+               stats_equal=True)
+    log(f"sharded fleet (float32, LLM 4 layers, lot, 1x1 CUDA sub-meshes) "
+        f"[{report['card']}] " + json.dumps(out, default=str))
+    report["sharded_fleet"] = out
+
+
+def phase_dryrun(report):
+    """The distribution layer's dry-run (``launch/dryrun.py``; host only):
+    each cell of :data:`DRYRUN_CELLS` on its production meshes (16x16,
+    and 2x16x16 where named) in a process of its own, its records read
+    back; every cell must be ``ok``."""
+    recs = []
+    for arch, shape, meshes in DRYRUN_CELLS:
+        out = os.path.join(ROOT, "build", f"smoke_dryrun_{arch}.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, *meshes, "--roofline", "--json", out],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=900, env=dict(os.environ, PYTHONPATH=os.path.join(
+                ROOT, "src")))
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"dry-run {arch} {shape} failed: "
+              f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        with open(out) as f:
+            cells = json.load(f)
+        for rec in cells:
+            check(rec["status"] == "ok", f"dry-run cell not ok: {rec}")
+            rec.pop("traceback", None)
+            log(f"dryrun {arch} {shape} "
+                f"{'2x16x16' if rec['multi_pod'] else '16x16'} "
+                f"(process wall {wall:.1f} s) " + json.dumps(rec))
+        recs.append(dict(arch=arch, shape=shape, wall_s=wall, cells=cells))
+    report["dryrun"] = recs
+
+
 # --------------------------------------------------------------- main --
 
 def main():
@@ -1691,16 +1987,23 @@ def main():
         report.setdefault("phase_s", {})[phase.__name__] = dt
         return out
 
+    # this run's tile cache: empty (the kernels' own plans) but in the
+    # autotune phase
+    autotune.CACHE_PATH = TUNE_CACHE
+    if os.path.exists(TUNE_CACHE):
+        os.remove(TUNE_CACHE)
     same_content = timed(phase_kernel_checks, timer, report)
     paged_launches, captured, paged_ms, llama_qkv, zoo = timed(
         phase_main_path, report)
     timed(phase_fleet_path, report, timer, *zoo)
+    timed(phase_autotune, report, timer, *zoo, captured)
     del zoo
     torch.cuda.empty_cache()
     dense_launches, dense_captured, dense_grid = timed(
         phase_dense_main_path, report, paged_ms)
     timed(phase_lossless, report)
     llm, ssms = timed(phase_fleet_lossless, report)
+    timed(phase_sharded_fleet, report, llm, ssms)
     timed(phase_spec_api, report, llm, ssms[0])
     del llm, ssms
     torch.cuda.empty_cache()
@@ -1714,6 +2017,7 @@ def main():
     flash_launches = timed(phase_flash, report, timer,
                            [mixtral_qkv, llama_qkv])
     timed(phase_train, report)
+    timed(phase_dryrun, report)
     launches = {"paged": paged_launches, "dense": dense_launches,
                 "ops": ops_launches, "flash": flash_launches}
     inputs = {**captured, "verify_attention": dense_captured, **ops_inputs,

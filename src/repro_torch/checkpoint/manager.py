@@ -177,10 +177,15 @@ class CheckpointManager:
         stored dtype and the template leaf's device.  Returns (tree,
         step).  A key the checkpoint lacks is looked up under the
         reference's path when ``cfg`` (the model config) is given, so a
-        checkpoint of the JAX package restores into the port's tree."""
-        if shardings is not None:
-            raise ValueError("sharded restore waits for the distribution "
-                             "port (ROADMAP Queue 1 item 6); pass None")
+        checkpoint of the JAX package restores into the port's tree.
+
+        ``shardings`` (optional): ``(mesh, placements_tree)``, a torch
+        ``DeviceMesh`` and a tree of the template's structure whose leaves
+        are DTensor placements (``distributed.sharding.sharding_tree``),
+        possibly for another mesh than the one the checkpoint was written
+        under: each leaf is placed with ``distribute_tensor`` on the
+        mesh's device type, as the reference places it with
+        ``jax.device_put`` (the elastic-resharding path)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -191,7 +196,7 @@ class CheckpointManager:
                   for l in manifest["leaves"]}
         leaves = iter(_flatten_with_paths(template))
 
-        def load(leaf):
+        def load(leaf, placements=None):
             key, _ = next(leaves)
             unit = None
             if key not in by_key and cfg is not None:
@@ -202,6 +207,14 @@ class CheckpointManager:
             arr = np.load(os.path.join(d, fn), mmap_mode="r")
             if unit is not None:
                 arr = arr[unit]
-            return _from_host(arr, dtype_name).to(leaf.device)
+            t = _from_host(arr, dtype_name)
+            if placements is None:
+                return t.to(leaf.device)
+            return distribute_tensor(t.to(mesh.device_type), mesh,
+                                     placements)
 
-        return map_tensors(load, template), step
+        if shardings is None:
+            return map_tensors(load, template), step
+        from torch.distributed.tensor import distribute_tensor
+        mesh, tree = shardings
+        return map_tensors(load, template, tree), step

@@ -184,7 +184,7 @@ def stage_bytes(D: int, kv_bytes: int) -> int:
 
 
 def tile_pipeline(rows: int, tiles: int, D: int, kv_bytes: int, ctas: int,
-                  sms: int):
+                  sms: int, wpt: int = 0, stages: int = 0):
     """(warps per team, stages per team) for a grid of ``ctas`` CTAs of
     ``rows`` query rows over at most ``tiles`` 32-slot tiles each.  A team
     has as many warps as it takes to give each at most one row (up to all
@@ -193,15 +193,34 @@ def tile_pipeline(rows: int, tiles: int, D: int, kv_bytes: int, ctas: int,
     score several rows each.  Each team gets as many stages as its share of
     the tiles needs, up to :data:`MAX_STAGES` and a byte budget:
     :data:`STAGE_BUDGET` (two CTAs per SM), less where the grid needs three
-    or four CTAs per SM to be resident at once; at least one."""
+    or four CTAs per SM to be resident at once; at least one.  A nonzero ``wpt`` or ``stages`` (a tuned config's,
+    ``autotune.FusedConfig``) replaces the rule's; one the kernel cannot
+    launch raises ``ValueError``: a team size other than 1, 2 or 4, more
+    than :data:`ROWS_PER_WARP` rows a warp, more than :data:`MAX_STAGES`
+    stages, or more than one stage over :data:`STAGE_BUDGET` (the budget at
+    two CTAs per SM, whatever the grid: a config that launches at one call
+    launches at every call)."""
+    if wpt:
+        if wpt not in (1, 2, WARPS) or rows > ROWS_PER_WARP * wpt:
+            raise ValueError(f"{wpt} warps a team cannot hold {rows} query "
+                             f"rows (1, 2 or {WARPS} warps, at most "
+                             f"{ROWS_PER_WARP} rows a warp)")
+    else:
+        wpt = 1 if rows <= 1 else (2 if rows <= 2 else WARPS)
+    teams = WARPS // wpt
+    per_stage = teams * stage_bytes(D, kv_bytes)
+    if stages:
+        if stages > MAX_STAGES or stages * per_stage > max(per_stage,
+                                                           STAGE_BUDGET):
+            raise ValueError(
+                f"{stages} stages of {teams} teams take {stages * per_stage}"
+                f" bytes of shared memory; the budget is {STAGE_BUDGET} "
+                f"(at most {MAX_STAGES} stages)")
+        return wpt, stages
     per_sm = max(2, min(4, -(-ctas // sms)))
     budget = min(STAGE_BUDGET, SMEM_PER_SM // per_sm - 3 * 1024)
-    wpt = 1 if rows <= 1 else (2 if rows <= 2 else WARPS)
-    teams = WARPS // wpt
     need = max(1, -(-tiles // teams))
-    stages = max(1, min(MAX_STAGES, need,
-                        budget // (teams * stage_bytes(D, kv_bytes))))
-    return wpt, stages
+    return wpt, max(1, min(MAX_STAGES, need, budget // per_stage))
 
 
 # Per (device, stream): int32 counters of the split kernels' in-launch

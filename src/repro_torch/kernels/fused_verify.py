@@ -22,21 +22,24 @@ fused_paged_verify_plain = ref.paged_verify_ref
 
 def fused_paged_verify(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
                        block_ids, block_owner, q_anc=None, block_node=None,
-                       k_scale=None, v_scale=None):
+                       k_scale=None, v_scale=None, config=None):
     """Single-launch packed verification.
 
     q: (Tq, H, D); pools: (N, bs, Kh, D); pool_seg/pool_pos: (N, bs);
     q_seg/q_pos: (Tq,); block_ids/block_owner: (M,) live physical blocks and
     the segment owning each (-1 = padding entry, never read); optional tree
     topology q_anc (Tq,) / block_node (M, bs), indexed by gathered entry m;
-    optional (N, bs, Kh) float32 scales for int8/fp8 pools.  Returns
-    (Tq, H, D) in q's dtype.  On the card: one launch over (query tile, kv
-    head, run of block entries); with more than one run, float32 partials
-    merged by each query tile's last run in the same launch."""
+    optional (N, bs, Kh) float32 scales for int8/fp8 pools; ``config``: a
+    tuned ``autotune.FusedConfig`` over ``paged_attention.run_plan`` (the
+    plain version ignores it).  Returns (Tq, H, D) in q's dtype.  On the
+    card: one launch over (query tile, kv head, run of block entries); with
+    more than one run, float32 partials merged by each query tile's last
+    run in the same launch."""
     if q.device.type == "cpu":
         return fused_paged_verify_plain(
             q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos, block_ids,
             block_owner, q_anc, block_node, k_scale, v_scale)
     return paged_attention.verify_runs(
         "fused_verify", NAME, q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
-        q_pos, block_ids, block_owner, q_anc, block_node, k_scale, v_scale)
+        q_pos, block_ids, block_owner, q_anc, block_node, k_scale, v_scale,
+        config)

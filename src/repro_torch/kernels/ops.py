@@ -1,9 +1,11 @@
 """Public wrappers for the port's kernels, with the reference's ``ops``
 signatures.  Each dispatches on the tensors' device: the plain PyTorch
-version on the CPU, the CUDA kernel on the card.  Tile arguments that the
-reference uses only as TPU tiles (``bq``, ``bk``, ``config``) are accepted
-and ignored: the CUDA kernels fix their own tiles (see ``autotune.py``).
-Every Pallas kernel of the reference has its CUDA kernel here.
+version on the CPU, the CUDA kernel on the card.  The fused kernels take a
+tuned tile config (``config``, an ``autotune.FusedConfig``; None = the
+kernel's own plan) on to their launch; the other tile arguments (``bq``,
+``bk``) are the reference's TPU tiles, accepted and ignored: those kernels
+plan their own launch.  Every Pallas kernel of the reference has its CUDA
+kernel here.
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ def fused_paged_verify(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
     """Single-launch packed verification (kernels/fused_verify.py)."""
     return _verify(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
                    block_ids, block_owner, q_anc, block_node, k_scale,
-                   v_scale)
+                   v_scale, config)
 
 
 def fused_paged_decode(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
@@ -78,4 +80,4 @@ def fused_paged_decode(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
                        config=None):
     """Single-launch multi-token paged decode (kernels/fused_decode.py)."""
     return _decode(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
-                   block_tables, k_scale, v_scale)
+                   block_tables, k_scale, v_scale, config)

@@ -42,7 +42,7 @@ MAX_RUN_SLOTS = 1024  # a run's slots (32 tiles), where MAX_RUNS allows
 
 
 def run_plan(Tq: int, G: int, Kh: int, M: int, bs: int, D: int,
-             kv_bytes: int, sms: int):
+             kv_bytes: int, sms: int, config=None):
     """(query tokens per CTA, block entries per run, runs, warps per team,
     stages) of one call.  A CTA holds one query row per warp where the
     GQA group allows it (``build.WARPS // G`` tokens, at least one; a
@@ -51,17 +51,35 @@ def run_plan(Tq: int, G: int, Kh: int, M: int, bs: int, D: int,
     CTAs per SM, each at most :data:`MAX_RUN_SLOTS` slots long as long as
     there are at most :data:`MAX_RUNS` runs; every entry lies in exactly
     one run and no run is empty (M = 0: one empty run, which writes
-    zeros)."""
-    bq = max(1, build.WARPS // G)
+    zeros).
+
+    ``config`` (``autotune.FusedConfig``; None or 0 in a field = the
+    plan's choice) sets the query tokens per CTA (``bq``), the least block
+    entries a run (``bk``: a list of more than :data:`MAX_RUNS` x ``bk``
+    entries takes ceil(M / MAX_RUNS) a run, as the plan's own choice does,
+    so that every bk launches at every M) and the stages (``depth``).  One
+    the kernel cannot launch raises ``ValueError``: more than
+    ``build.MAX_ROWS`` query rows a CTA, stages over
+    ``build.tile_pipeline``'s budget."""
+    bq_set, per_run_set, stages_set = (
+        (config.bq, config.bk, config.depth) if config is not None
+        else (0, 0, 0))
+    bq = bq_set or max(1, build.WARPS // G)
+    if bq * G > build.MAX_ROWS:
+        raise ValueError(f"{bq} query tokens of GQA group {G} exceed "
+                         f"{build.MAX_ROWS} rows a CTA")
     base = -(-Tq // bq) * Kh
-    want = max(1, round(RUN_CTAS_PER_SM * sms / base))
     n = max(M, 1)
-    per_run = min(-(-n // want), max(1, MAX_RUN_SLOTS // bs))
+    if per_run_set:
+        per_run = per_run_set
+    else:
+        want = max(1, round(RUN_CTAS_PER_SM * sms / base))
+        per_run = min(-(-n // want), max(1, MAX_RUN_SLOTS // bs))
     per_run = max(per_run, -(-n // MAX_RUNS))
     runs = -(-n // per_run)
     tiles = -(-per_run * bs // build.KV_TILE)
     wpt, stages = build.tile_pipeline(bq * G, tiles, D, kv_bytes,
-                                      base * runs, sms)
+                                      base * runs, sms, stages=stages_set)
     return bq, per_run, runs, wpt, stages
 
 
@@ -132,14 +150,16 @@ def paged_verify_attention(q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
 
 def verify_runs(source, name, q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
                 q_pos, block_ids, block_owner, q_anc, block_node, k_scale,
-                v_scale):
+                v_scale, config=None):
     """One launch of the run-of-entries verify kernel
     (``csrc/verify_runs.cuh``) through entry ``spin_<name>`` of
     ``csrc/<source>.cu``: the argument checks, :func:`run_plan`, the
     float32 partials (only with more than one run) and the merge counters
     (:func:`build.merge_counters`); one count in :data:`build.LAUNCHES`
     under ``name``.  Shared by this module's ``paged_verify_attention`` and
-    ``fused_verify.fused_paged_verify``; no host sync."""
+    ``fused_verify.fused_paged_verify``; no host sync.  ``config`` (a
+    tuned ``autotune.FusedConfig``, only from ``fused_paged_verify``) is
+    applied over the plan by :func:`run_plan`."""
     if (q_anc is None) != (block_node is None):
         raise ValueError("q_anc and block_node come together")
     Tq, H, D = q.shape
@@ -155,7 +175,7 @@ def verify_runs(source, name, q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
         build.check_int(arg, t, shape, q.device)
     bq, per_run, runs, wpt, stages = run_plan(
         Tq, H // Kh, Kh, M, bs, D, k_pool.element_size(),
-        build.sm_count(q.device))
+        build.sm_count(q.device), config)
     stream = build.stream_of(q)
     pm, pl, pacc, counters = build.run_scratch(runs, Tq, H, D,
                                                -(-Tq // bq) * Kh, q.device,

@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
+
 NEG_INF = -1e30
 
 
@@ -64,11 +66,11 @@ def _attn_block(q, k, v, q_pos, kv_pos, q_seg, kv_seg, window, scale,
     s = torch.matmul(qf, kf) * scale  # (B, Kh, G, Qb, S)
     mask = kv_pos[:, None, :] <= q_pos[:, :, None]  # (B, Qb, S) causal
     if window:
-        mask &= kv_pos[:, None, :] > (q_pos[:, :, None] - window)
+        mask = mask & (kv_pos[:, None, :] > (q_pos[:, :, None] - window))
     if q_seg is not None:
-        mask &= q_seg[:, :, None] == kv_seg[:, None, :]
+        mask = mask & (q_seg[:, :, None] == kv_seg[:, None, :])
     if kv_node is not None:
-        mask &= tree_term(q_anc[:, :, None], kv_node[:, None, :])
+        mask = mask & tree_term(q_anc[:, :, None], kv_node[:, None, :])
     s = torch.where(mask[:, None, None], s, NEG_INF)
     m = torch.amax(s, dim=-1, keepdim=True)
     # rows with no valid key (padding query) -> all NEG_INF; keep finite
@@ -98,6 +100,9 @@ def attention(q, k, v, *, q_positions, kv_positions, q_segments=None,
     Kh = k.shape[2]
     G = Hq // Kh
     scale = 1.0 / math.sqrt(D)
+    # under a rule table the query heads are laid out as the kv heads
+    # allow, so that the split into (Kh, G) groups is even
+    q = constrain(q, "batch", "seq", "kv_heads", shape=(B, Sq, Kh))
     qg = q.reshape(B, Sq, Kh, G, D)
     outs = []
     for lo in range(0, Sq, q_block):
@@ -117,7 +122,9 @@ def swiglu(x, w_gate, w_up, w_down):
 
 
 def embed(tokens, table):
-    return table[tokens.long()]
+    # an embedding op, not indexing: a row gather either way, and DTensor
+    # lays it out over a batch sharded on two mesh dims (pod, data)
+    return F.embedding(tokens.long(), table)
 
 
 def softmax_cross_entropy(logits, labels, mask=None, vocab_size: int = 0):
@@ -131,8 +138,8 @@ def softmax_cross_entropy(logits, labels, mask=None, vocab_size: int = 0):
         pad[vocab_size:] = NEG_INF
         logits = logits + pad
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - ll
+    ll = torch.gather(logits, -1, labels[..., None].long())
+    nll = (logz[..., None] - ll)[..., 0]
     if mask is None:
         return nll.mean()
     mask = mask.float()

@@ -51,10 +51,11 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int, cf: float):
     # slot of each kept pair in the flat (E*C) grid; dropped pairs go to
     # the spare slot E*C.  Unfilled slots keep token 0 with validity 0.
     flat = torch.where(keep, flat_e * C + pos, E * C)
-    slot_tok = torch.zeros(E * C + 1, dtype=torch.long, device=x.device)
-    slot_tok.scatter_(0, flat, token_idx)
-    slot_valid = torch.zeros(E * C + 1, dtype=x.dtype, device=x.device)
-    slot_valid.scatter_(0, flat, torch.ones_like(flat, dtype=x.dtype))
+    slot_tok = torch.zeros(E * C + 1, dtype=torch.long,
+                           device=x.device).scatter(0, flat, token_idx)
+    slot_valid = torch.zeros(E * C + 1, dtype=x.dtype,
+                             device=x.device).scatter(
+        0, flat, torch.ones_like(flat, dtype=x.dtype))
     slot_tok = slot_tok[: E * C].view(E, C)
     slot_valid = slot_valid[: E * C].view(E, C)
 

@@ -38,6 +38,8 @@ from typing import Any, Dict
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.distributed.sharding import (constrain, is_dtensor,
+                                              shard_write)
 from repro_torch.kernels import quant
 from repro_torch.models import config as C
 from repro_torch.models import mamba2, moe, xlstm
@@ -63,6 +65,12 @@ class Opts:
     # outputs (aten.mm, the analogue of the reference's
     # dots_with_no_batch_dims_saveable) and recomputes the rest
     remat: str = "full"
+    # every cache write of a step lands in range (the caller's promise, as
+    # the dry-run's cells make: a prompt, or a decode step within the
+    # cache): :func:`write_index` keeps the whole (B, T) grid without
+    # reading the positions, the one form a run on shapes alone can take;
+    # an index out of range then raises at the write
+    writes_in_range: bool = False
 
     def __post_init__(self):
         if self.remat not in REMAT:
@@ -160,6 +168,21 @@ def param_spec(cfg: C.ModelConfig) -> Dict[str, Any]:
     return spec
 
 
+def abstract_params(cfg, dtype=None):
+    """The parameter tree as ``meta`` tensors (shapes and dtypes, no
+    memory)."""
+    dtype = dtype or cfg.compute_dtype
+    return pp.tree_map(lambda p: torch.empty(p.shape, dtype=dtype,
+                                             device="meta"), param_spec(cfg))
+
+
+def logical_axes(cfg):
+    """Tree of logical-axis tuples, same structure as the param tree
+    (each per-layer leaf's axes are the reference's stacked leaf's without
+    the leading ``layers`` axis)."""
+    return pp.tree_map(lambda p: p.axes, param_spec(cfg))
+
+
 def init_params(cfg, seed: int = 0, dtype=None, device="cuda"):
     """Random parameters from ``seed`` (an explicit generator on
     ``device``)."""
@@ -222,6 +245,39 @@ def init_cache(cfg, batch, max_len, device="cuda"):
     return cache
 
 
+def abstract_cache(cfg, batch, max_len):
+    """:func:`init_cache`'s tree as ``meta`` tensors."""
+    return init_cache(cfg, batch, max_len, device="meta")
+
+
+# each cache leaf's logical axes after its leading group-stack axis
+# ("layers", never named by a rule table): the reference's per-block axes
+# (repro.models.transformer.cache_logical_axes)
+_CACHE_AXES = {
+    "k": ("cache_batch", "cache_seq", "kv_heads", "head_dim"),
+    "v": ("cache_batch", "cache_seq", "kv_heads", "head_dim"),
+    "pos": ("cache_batch", "cache_seq"),
+    "seg": ("cache_batch", "cache_seq"),
+    "ssd": ("cache_batch", "ssm_heads", None, None),
+    "conv": ("cache_batch", None, "ssm_conv"),
+}
+
+
+def cache_leaf_axes(name: str, ndim: int):
+    """Logical axes of the cache leaf ``name`` of rank ``ndim``: stacked
+    over its group's blocks, so it starts with ``"layers"``; the recurrent
+    states of mLSTM/sLSTM are (B, heads, ...)."""
+    return ("layers",) + (_CACHE_AXES.get(name) or (
+        ("cache_batch", "heads") + (None,) * (ndim - 3)))
+
+
+def cache_logical_axes(cfg, batch, max_len):
+    """Logical-axis tree matching :func:`abstract_cache` (consumed by
+    ``distributed/sharding.sharding_tree``)."""
+    return {name: cache_leaf_axes(name, leaf.dim())
+            for name, leaf in abstract_cache(cfg, batch, max_len).items()}
+
+
 def init_paged_cache(cfg, num_blocks, block_size, kv_dtype: str = "bf16",
                      device="cuda"):
     """Paged KV block pool: the ``init_cache`` dict with (physical block,
@@ -260,15 +316,25 @@ def layer_view(cache, layer: int):
 def masked_write(dst, dst_idx, src):
     """``dst[dst_idx] = src`` along the leading axes.  The reference's
     scatters drop out-of-range indices; here the caller has already
-    filtered them (see ``write_index``)."""
-    dst[dst_idx] = src.to(dst.dtype)
+    filtered them (see ``write_index``).  A cache laid out over a mesh (a
+    DTensor) is written shard by shard (``sharding.shard_write``)."""
+    if is_dtensor(dst):
+        shard_write(dst, dst_idx, src)
+    else:
+        dst[dst_idx] = src.to(dst.dtype)
 
 
-def write_index(write_idx, S: int):
+def write_index(write_idx, S: int, in_range: bool = False):
     """(batch rows, slots, source flat index) of the in-range writes of a
     (B, T) slot-index grid — computed once per forward and shared by every
-    layer (the reference drops out-of-range scatter updates)."""
+    layer (the reference drops out-of-range scatter updates).
+    ``in_range`` (``Opts.writes_in_range``): every write is in range, so
+    all B x T are kept without a data-dependent filter."""
     B, T = write_idx.shape
+    if in_range:
+        src = torch.arange(B * T, device=write_idx.device)
+        return (torch.div(src, T, rounding_mode="floor"),
+                write_idx.reshape(-1).long(), src)
     ok = (write_idx >= 0) & (write_idx < S)
     src = torch.nonzero(ok.reshape(-1)).squeeze(1)
     rows = torch.div(src, T, rounding_mode="floor")
@@ -281,9 +347,19 @@ def project_qkv(p, h, cfg, positions):
     """An attention block's q (B, S, H, hd) and k, v (B, S, Kh, hd) from
     its normed input h (B, S, d): projections, QKV bias, RoPE."""
     B, S, d = h.shape
-    q = (h @ p["wq"].reshape(d, -1)).reshape(B, S, cfg.n_heads, cfg.hd)
-    k = (h @ p["wk"].reshape(d, -1)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = (h @ p["wv"].reshape(d, -1)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+
+    def heads(w, n, name):
+        # under a rule table the merged (heads x head_dim) dims of the
+        # weight (gathered over its embed shards) and of the output are
+        # laid out as the head count allows, so that the splits (the
+        # output's here, the weight gradient's in the backward) are even
+        w = constrain(w.reshape(d, -1), None, name, shape=(d, n))
+        y = constrain(h @ w, "batch", "seq", name, shape=(B, S, n))
+        return y.reshape(B, S, n, cfg.hd)
+
+    q = heads(p["wq"], cfg.n_heads, "heads")
+    k = heads(p["wk"], cfg.n_kv_heads, "kv_heads")
+    v = heads(p["wv"], cfg.n_kv_heads, "kv_heads")
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = rope(q, positions, cfg.rope_theta)
@@ -334,14 +410,16 @@ def _attn_block(p, x, cfg, opts, *, positions, segments, kv_cache, widx,
                       window=cfg.sliding_window, q_block=opts.q_block)
     nq, hd = cfg.n_heads, cfg.hd
     o = o.reshape(B, S, nq * hd) @ p["wo"].reshape(nq * hd, d)
-    x = x + o
+    x = constrain(x + o, "batch", "seq", "act_embed")
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if not is_moe:
-        return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), (0.0, 0.0)
+        x = x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+        return constrain(x, "batch", "seq", "act_embed"), (0.0, 0.0)
     out, aux, z = moe.moe_ffn(h.reshape(B * S, d), p["router"], p["w_gate"],
                               p["w_up"], p["w_down"], top_k=cfg.top_k,
                               cf=cfg.capacity_factor)
-    return x + out.reshape(B, S, d), (aux, z)
+    return constrain(x + out.reshape(B, S, d), "batch", "seq",
+                     "act_embed"), (aux, z)
 
 
 def _recurrent_block(kind, p, x, cfg, opts, cache, slot):
@@ -370,7 +448,7 @@ def _recurrent_block(kind, p, x, cfg, opts, cache, slot):
     if cache is not None:
         for n, t in zip(leaves, st):
             cache[n][slot].copy_(t)
-    return x + out
+    return constrain(x + out, "batch", "seq", "act_embed")
 
 
 def _run_stack(params, x, cfg, opts, *, positions, segments, cache, widx,
@@ -443,22 +521,28 @@ def apply(params, cfg, *, tokens=None, inputs_embeds=None, prefix_embeds=None,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
+    x = constrain(x, "batch", "seq", "act_embed")
     x, (am, az) = _run_stack(params, x, cfg, opts, positions=positions,
                              segments=segments, cache=None, widx=None)
     aux = tuple(torch.as_tensor(a, dtype=torch.float32, device=x.device)
                 for a in (am, az))
-    return _logits(cfg, params, x), aux
+    logits = constrain(_logits(cfg, params, x), "batch", "seq", "vocab")
+    return logits, aux
 
 
 def prefill(params, cfg, *, tokens=None, inputs_embeds=None,
             prefix_embeds=None, lengths=None, max_len=None, segments=None,
-            positions=None, last_logits_only=False, opts: Opts = Opts()):
+            positions=None, last_logits_only=False, cache=None,
+            opts: Opts = Opts()):
     """Process prompts, build a dense cache.  Returns (logits, cache).
 
     lengths: (B,) valid prompt lengths (tokens beyond are padding).
     max_len: cache capacity (defaults to the prompt length).
     last_logits_only: logits of each row's last valid position only,
     (B, 1, V).
+    cache: the cache to fill, as ``init_cache(cfg, B, max_len)`` makes it
+    (a caller may lay it out over a mesh, as the reference's jit does by
+    its out_shardings); made here when None.
     """
     x = _inputs_to_x(cfg, params, tokens, inputs_embeds, prefix_embeds)
     B, S, _ = x.shape
@@ -472,7 +556,8 @@ def prefill(params, cfg, *, tokens=None, inputs_embeds=None,
         segments = torch.where(positions < lengths[:, None], 0, -1).to(
             torch.int32)
     max_len = max_len or S
-    cache = init_cache(cfg, B, max_len, dev)
+    if cache is None:
+        cache = init_cache(cfg, B, max_len, dev)
     Sc = cache_len(cfg, max_len)
     if cfg.sliding_window and Sc < S:
         # ring buffer: only the last Sc positions land in the cache; the
@@ -480,7 +565,9 @@ def prefill(params, cfg, *, tokens=None, inputs_embeds=None,
         slots = torch.where(positions >= S - Sc, positions % Sc, Sc)
     else:
         slots = torch.clamp(positions, max=Sc - 1)
-    widx = write_index(slots, Sc) if "k" in cache else None
+    widx = (write_index(slots, Sc, opts.writes_in_range) if "k" in cache
+            else None)
+    x = constrain(x, "batch", "seq", "act_embed")
     x, _ = _run_stack(params, x, cfg, opts, positions=positions,
                       segments=segments, cache=cache, widx=widx,
                       attend_cache=False)
@@ -507,7 +594,8 @@ def decode_step(params, cfg, cache, *, tokens=None, inputs_embeds=None,
     if attn_override is None and "k" in cache:
         Sc = cache["k"].shape[2]
         widx = write_index(positions % Sc if cfg.sliding_window else positions,
-                           Sc)
+                           Sc, opts.writes_in_range)
+    x = constrain(x, "batch", "seq", "act_embed")
     x, _ = _run_stack(params, x, cfg, opts, positions=positions,
                       segments=segments, cache=cache, widx=widx,
                       attn_override=attn_override)
@@ -519,7 +607,8 @@ def verify_step_packed(params, cfg, cache, *, tokens, positions, segments,
     """SPIN packed verification: all requests' query tokens flattened into
     one (1, Tq) row; attention and cache write-back are handled by
     ``attn_override``.  Returns (logits, cache)."""
-    x = _inputs_to_x(cfg, params, tokens)
+    x = constrain(_inputs_to_x(cfg, params, tokens), "batch", "seq",
+                  "act_embed")
     x, _ = _run_stack(params, x, cfg, opts, positions=positions,
                       segments=segments, cache=cache, widx=None,
                       attn_override=attn_override)

@@ -255,7 +255,7 @@ class SpinEngine:
             return autotune.get_config(
                 kind, H=b.cfg.n_heads, Kh=b.cfg.n_kv_heads, D=b.cfg.hd,
                 gamma_max=self.gamma_max, block_size=ecfg.block_size,
-                shape=s, kv_dtype=self.kv_dtype)
+                shape=s, kv_dtype=self.kv_dtype, device=b.device)
 
         self.fused_llm_decode = _fused_cfg("decode", llm)
         self.fused_llm_verify = _fused_cfg("verify", llm, shape)

@@ -3,9 +3,12 @@
 The scaling unit is the **replica**: an independent ``SpinEngine`` and
 ``ContinuousScheduler`` pair.  Replicas share model weights (the
 ``Bundle`` objects are read-only) but own disjoint KV pools, selectors,
-schedulers and sim clocks.  The reference carves each replica a sub-mesh
-of the serving mesh; the port has no mesh yet (ROADMAP Queue 1 item 6),
-so every replica runs on the one device its bundles live on.
+schedulers and sim clocks.  Each replica may be given a sub-mesh of the
+serving mesh (``launch/mesh.py`` ``replica_submeshes``) and a rule table
+(``distributed/sharding.py``): its steps then run under that sub-mesh's
+rules.  With fewer cards than replicas (one H100) every sub-mesh is the
+1x1 mesh of the card the fleet shares, and the model's plain tensors are
+already laid out there.
 
 The ``Router`` owns the global arrival stream and hands each request to a
 replica at its arrival instant:
@@ -36,6 +39,7 @@ engines' state.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import heapq
 from typing import Dict, List, Optional, Sequence
@@ -43,6 +47,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from repro_torch.data.workloads import Request
+from repro_torch.distributed.sharding import use_rules
 from repro_torch.serving.engine import EngineConfig, SpinEngine
 from repro_torch.serving.stats import (FleetStats, ReplicaStats,
                                        expected_time_per_token, slo_summary)
@@ -188,10 +193,13 @@ class RouterConfig:
 class Router:
     """Dispatches a global request stream across engine replicas.
 
-    ``submeshes`` / ``rules`` (the reference's per-replica device slices
-    and sharding rule table) wait for the distribution port (ROADMAP
-    Queue 1 item 6); only ``None`` is accepted, and every replica runs on
-    its bundles' device.
+    ``submeshes`` / ``rules`` are optional: when given (one sub-mesh per
+    replica, from ``launch.mesh.replica_submeshes``, plus a
+    ``distributed.sharding`` rule table), every replica step runs inside
+    ``use_rules(submeshes[i], rules)`` so the model forward's sharding
+    constraints resolve against that replica's own device slice.  Without
+    them ``constrain`` is a no-op and every replica runs on its bundles'
+    device.
 
     With ``cfg.autoscale != "off"`` the router is the elastic control
     plane: ``engines`` is the pre-built maximum fleet, of which the first
@@ -204,12 +212,15 @@ class Router:
                  submeshes=None, rules=None):
         if not engines:
             raise ValueError("router needs at least one replica engine")
-        if submeshes is not None or rules is not None:
-            raise ValueError(
-                "per-replica sub-meshes and sharding rules wait for the "
-                "distribution port (ROADMAP Queue 1 item 6); pass None")
         self.engines = list(engines)
         self.cfg = cfg or RouterConfig()
+        if submeshes is not None and len(submeshes) != len(self.engines):
+            raise ValueError(
+                f"{len(submeshes)} sub-meshes for {len(self.engines)} "
+                "replicas — carve one per replica (launch.mesh."
+                "replica_submeshes)")
+        self.submeshes = submeshes
+        self.rules = rules
         self._rng = np.random.default_rng(self.cfg.seed)
         self._pending: List = []           # heap of (arrival, seq, Request)
         self._seq = 0
@@ -508,9 +519,16 @@ class Router:
                             "dst": dst, "rids": [r.rid for r in reqs]})
 
     # ------------------------------------------------------------- loop --
+    def _replica_ctx(self, i: int):
+        if self.submeshes is None or self.rules is None:
+            return contextlib.nullcontext()
+        return use_rules(self.submeshes[i], self.rules)
+
     def step_replica(self, i: int) -> dict:
-        """One engine slot on replica ``i``."""
-        rec = self.engines[i].step()
+        """One engine slot on replica ``i`` (under its sub-mesh's sharding
+        rules when meshes were provided)."""
+        with self._replica_ctx(i):
+            rec = self.engines[i].step()
         self.steps[i] += 1
         self._observe_kv(i)
         return rec

@@ -1,6 +1,7 @@
-"""Import hygiene of the PyTorch port: nothing under ``src/repro_torch/``
-and nothing in ``chip_smoke.py`` imports JAX or the JAX package ``repro``
-(``repro_torch`` itself is fine)."""
+"""Import hygiene of the PyTorch port: nothing under ``src/repro_torch/``,
+in ``chip_smoke.py`` or in the port's examples (``examples/*_torch.py``)
+imports JAX or the JAX package ``repro`` (``repro_torch`` itself is
+fine)."""
 
 import ast
 import pathlib
@@ -9,7 +10,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 

@@ -16,12 +16,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_dist import gloo_world
 from torch_fleet import (JAX, PORT, assert_same_fleet, build_models,
                          make_engine, one_thread, run_fleet)  # noqa: F401
 
 from repro.launch import serve as jserve
 from repro.serving import router as jrouter
-from repro_torch.launch import serve
+from repro_torch.distributed import sharding
+from repro_torch.launch import mesh, serve
 from repro_torch.serving import router
 from repro_torch.serving.engine import EngineConfig
 
@@ -104,14 +106,29 @@ def test_router_tables_match_reference():
 
 def test_router_rejects_submeshes_and_bad_fleets(models):
     eng = make_engine(PORT, models["port"])
-    with pytest.raises(ValueError, match="item 6"):
-        router.Router([eng], submeshes=[object()])
-    with pytest.raises(ValueError, match="item 6"):
-        router.Router([eng], rules={})
+    with pytest.raises(ValueError, match="sub-meshes for 1 replicas"):
+        router.Router([eng], submeshes=[object(), object()])
     with pytest.raises(ValueError):
         router.Router([], router.RouterConfig())
     with pytest.raises(ValueError):
         router.Router([eng], router.RouterConfig(replicas_min=2))
+
+
+def test_router_on_replica_submeshes_matches_reference(models):
+    """Two replicas sharing the one rank of a world-1 ``gloo`` group, each
+    stepping under ``use_rules`` on its 1x1 sub-mesh with the serve
+    table: the same stats, tokens and dispatch trail as the reference's
+    router without meshes."""
+    kw = dict(policy="p2c", seed=3)
+    ref = run_fleet(JAX, models["jax"], 2, kw)
+    with gloo_world():
+        subs = mesh.replica_submeshes(mesh.make_local_mesh(
+            replicas=2, device_type="cpu"))
+        mine = run_fleet(PORT, models["port"], 2, kw,
+                         router_kw=dict(submeshes=subs,
+                                        rules=sharding.serve_rules()))
+    assert mine.submeshes == subs and not sharding.active()
+    assert_same_fleet(mine, ref)
 
 
 def test_serve_cli_fleet_finishes():

@@ -28,12 +28,16 @@ from repro.optim import AdamW as JAdamW
 from repro.optim import cosine_schedule as j_cosine
 from repro.optim import linear_warmup as j_warmup
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.distributed import sharding
+from repro_torch.launch import mesh
 from repro_torch.launch.train import main as train_main
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import from_jax_numpy, tensor_leaves
+from repro_torch.models.params import (from_jax_numpy, map_tensors,
+                                       tensor_leaves)
 from repro_torch.optim import (AdamW, AdamWState, cosine_schedule,
                                linear_warmup)
+from torch_dist import gloo_world
 from torch_fleet import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
@@ -233,8 +237,28 @@ def test_checkpoint_round_trip_with_bf16(tmp_path):
     arr = np.load(tmp_path / "step_3" / "h.npy")
     assert arr.dtype == np.uint16
     assert (tmp_path / "step_3" / "layers__1__b.npy").exists()
-    with pytest.raises(ValueError, match="item 6"):
-        mgr.restore(tree, shardings=object())
+    with pytest.raises(TypeError):
+        mgr.restore(tree, shardings=object())     # not (mesh, placements)
+
+
+def test_checkpoint_restores_onto_a_mesh(tmp_path):
+    """``restore(shardings=(mesh, placements tree))`` on a world-1 mesh
+    places every leaf as a DTensor whose values equal the unsharded
+    restore's."""
+    from torch.distributed.tensor import DTensor
+    mgr = CheckpointManager(str(tmp_path))
+    tree = _tree()
+    mgr.save(4, tree)
+    plain, _ = mgr.restore(tree)
+    with gloo_world():
+        m = mesh.make_local_mesh(device_type="cpu")
+        placements = map_tensors(lambda t: sharding.replicated(m), tree)
+        out, step = mgr.restore(tree, shardings=(m, placements))
+        assert step == 4
+        flat = _flat(out)
+        assert all(isinstance(x, DTensor) and x.device_mesh == m
+                   for x in flat.values())
+        _same({k: x.full_tensor() for k, x in flat.items()}, _flat(plain))
 
 
 def test_checkpoint_atomic_and_gc(tmp_path):

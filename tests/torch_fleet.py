@@ -108,12 +108,15 @@ def workload(pkg, n=6, rate=300.0, seed=11, diurnal=False):
 
 
 def run_fleet(pkg, models, n_engines, rcfg_kw, classes=None, work_kw=None,
-              max_slots=400):
-    """One router run of package ``pkg`` over its own engines."""
+              max_slots=400, router_kw=None):
+    """One router run of package ``pkg`` over its own engines
+    (``router_kw``: the Router's keyword arguments, sub-meshes and
+    rules)."""
     classes = classes or [None] * n_engines
     engines = [make_engine(pkg, models, seed=i, cls=classes[i])
                for i in range(n_engines)]
-    r = pkg.router.Router(engines, pkg.router.RouterConfig(**rcfg_kw))
+    r = pkg.router.Router(engines, pkg.router.RouterConfig(**rcfg_kw),
+                          **(router_kw or {}))
     r.submit(workload(pkg, **(work_kw or {})))
     r.run(max_slots=max_slots)
     return r
