@@ -145,10 +145,25 @@ script then exits non-zero without its last line.  Phases:
    sub-mesh (``launch.mesh``, a world-1 process group) and
    ``serve_rules()``: tokens and router stats must be equal, #1 and #2
    launched;
-20. the dry-run (after phase 17; host only, in a process of its own):
+20. the dry-run (host only; started after the build, each cell list in a
+   process of its own beside the card's phases, read after phase 17):
    ``launch/dryrun.py`` on ``DRYRUN_CELLS`` (qwen2-0.5b x decode_32k on
-   the 16x16 and 2x16x16 fake meshes); each record and its wall seconds;
-   every cell ``ok``.
+   the 16x16 and 2x16x16 fake meshes, and x prefill_32k on 2x16x16, a
+   cell whose last-token gather has the batch on two mesh dims); each
+   record and its seconds; every cell ``ok``;
+21. the trained zoo (before phase 17): ``examples/train_distill_ssm_torch``
+   trains the LLM and the five SSMs of its capacity ladder (4 heads of D
+   = d_model / 4 = 4 .. 32, float32) on the card, each model's steps,
+   final loss and seconds; the mix workload (``ZOO_REQUESTS`` requests)
+   served through the paged engine, fused kernels on, LBSS over all five
+   SSMs, with the trained zoo and with the same configs at random init:
+   per SSM, LBSS's selections and the acceptance on easy and on hard
+   requests (a first reading, not held to a limit); every request
+   finishes and #1 and #2 launch; the trained zoo's tokens against its
+   LLM's greedy decoding (phase 6's gap rule); the serving launcher
+   (``launch/serve.main(..., zoo=...)``) on it.  Phase 3 also checks #1
+   and #2 at the zoo's geometries (``ZOO_HEAD_DIMS``, bf16 and float32
+   K/V; bf16 at D 4 and 12 on the scalar path).
 
 The last three lines are the kernels JSON, the card line of
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and
@@ -158,9 +173,11 @@ The last three lines are the kernels JSON, the card line of
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import inspect
+import io
 import json
 import math
 import os
@@ -289,7 +306,16 @@ LONG_DECODE_LENS = [32767, 4095]
 # the dry-run phase's cells (arch, shape, meshes), each in a process of
 # its own (its fake 512-rank group): qwen2-0.5b's decode on both
 # production meshes (the whole table is launch/dryrun.py --all)
-DRYRUN_CELLS = [("qwen2-0.5b", "decode_32k", ["--both-meshes"])]
+DRYRUN_CELLS = [("qwen2-0.5b", "decode_32k", ["--both-meshes"]),
+                ("qwen2-0.5b", "prefill_32k", ["--multi-pod"])]
+# the trained zoo's head dims (examples/train_distill_ssm_torch.py: 4 heads
+# of d_model / 4 for d 16, 32, 48, 64, 96 and the LLM's 128) and context
+# lengths of its requests for the kernel checks
+ZOO_HEAD_DIMS = (4, 8, 12, 16, 24, 32)
+ZOO_LENS = [30, 75, 0, 12, 50, 96]
+# phase 21's workload: mix requests at t = 0, split into easy and hard by
+# their difficulty (data/workloads.py: cp 0.05, cip 0.45, alpaca 0.85)
+ZOO_REQUESTS, ZOO_SCALE, ZOO_CAPACITY, ZOO_HARD = 24, 0.5, 8, 0.5
 
 
 def log(*a):
@@ -757,6 +783,17 @@ def kernel_check_cases(gen):
     for kv, lens, H, Kh, D, bs, tag in PAGED_DECODE_ROWS:
         todo.append(("paged_decode_attention", f"{tag} {kv}",
                      cases.paged_decode_inputs(gen, lens, H, Kh, D, bs, kv)))
+    # #1 and #2 at the trained zoo's geometries (phase 21): 4 heads of D =
+    # d_model / 4 = 4 .. 32, block size 16; bf16 K/V at D 4 and 12 takes
+    # the scalar path (no whole 16-byte vectors a row)
+    for D in ZOO_HEAD_DIMS:
+        for kv in ("bf16", "f32"):
+            todo.append(("fused_paged_verify", f"zoo D={D} {kv} linear",
+                         cases.verify_inputs(gen, ZOO_LENS, 4, 4, 4, D, 16,
+                                             kv, False)))
+            todo.append(("fused_paged_decode", f"zoo D={D} draft T=1 {kv}",
+                         cases.decode_inputs(gen, ZOO_LENS, 1, 4, 4, D, 16,
+                                             kv)))
     return todo
 
 
@@ -1913,34 +1950,157 @@ def phase_sharded_fleet(report, llm, ssms):
     report["sharded_fleet"] = out
 
 
-def phase_dryrun(report):
-    """The distribution layer's dry-run (``launch/dryrun.py``; host only):
-    each cell of :data:`DRYRUN_CELLS` on its production meshes (16x16,
-    and 2x16x16 where named) in a process of its own, its records read
-    back; every cell must be ``ok``."""
-    recs = []
+def start_dryrun():
+    """Start the dry-run of each cell of :data:`DRYRUN_CELLS` (host only,
+    its fake 512-rank group in a process of its own) to run beside the
+    card's phases; :func:`phase_dryrun` reads them.  A process still
+    running when this script exits is killed."""
+    runs = []
     for arch, shape, meshes in DRYRUN_CELLS:
-        out = os.path.join(ROOT, "build", f"smoke_dryrun_{arch}.json")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        out = os.path.join(ROOT, "build", f"smoke_dryrun_{arch}_{shape}")
+        logf = open(out + ".log", "w")
+        proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, *meshes, "--roofline", "--json", out],
-            cwd=ROOT, capture_output=True, text=True,
-            timeout=900, env=dict(os.environ, PYTHONPATH=os.path.join(
-                ROOT, "src")))
-        wall = time.perf_counter() - t0
+             arch, "--shape", shape, *meshes, "--roofline", "--json",
+             out + ".json"], cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        logf.close()
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())
+        runs.append((arch, shape, out, proc))
+    return runs
+
+
+def phase_dryrun(report, runs):
+    """The distribution layer's dry-run (``launch/dryrun.py``; host only):
+    the runs :func:`start_dryrun` started, each cell's record read back;
+    every cell must be ``ok``."""
+    recs = []
+    for arch, shape, out, proc in runs:
+        try:
+            proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            check(False, f"dry-run {arch} {shape} did not end in 900 s")
+        with open(out + ".log") as f:
+            text = f.read()
         check(proc.returncode == 0, f"dry-run {arch} {shape} failed: "
-              f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
-        with open(out) as f:
+              f"{text[-4000:]}")
+        with open(out + ".json") as f:
             cells = json.load(f)
         for rec in cells:
             check(rec["status"] == "ok", f"dry-run cell not ok: {rec}")
             rec.pop("traceback", None)
             log(f"dryrun {arch} {shape} "
                 f"{'2x16x16' if rec['multi_pod'] else '16x16'} "
-                f"(process wall {wall:.1f} s) " + json.dumps(rec))
-        recs.append(dict(arch=arch, shape=shape, wall_s=wall, cells=cells))
+                f"(cell {rec['compile_s']:.1f} s) " + json.dumps(rec))
+        recs.append(dict(arch=arch, shape=shape, cells=cells))
     report["dryrun"] = recs
+
+
+def zoo_serve(llm, ssms):
+    """Serve :data:`ZOO_REQUESTS` mix requests through the paged engine,
+    fused kernels on, LBSS over every SSM; per SSM and per easy / hard
+    request: LBSS's selections of it (one a request and slot) and its
+    acceptance (the mean over those of the accepted drafts over the
+    positions tested, as the engine observes them)."""
+    reqs = make_workload("mix", ZOO_REQUESTS, llm.cfg.vocab_size, seed=0,
+                         scale=ZOO_SCALE)
+    eng = make_engine(llm, ssms, reqs, EngineConfig(
+        gamma=4, max_len=256, fused_kernels="on", capacity=ZOO_CAPACITY))
+    eng.add_requests(reqs)
+    hard = {r.rid: r.difficulty >= ZOO_HARD for r in reqs}
+    table = {(j, h): dict(slots=0, rates=[]) for j in range(len(ssms))
+             for h in (False, True)}
+    observe = eng.selector.observe_accept
+
+    def observe_accept(rid, j, rate):
+        cell = table[(j, hard[rid])]
+        cell["slots"] += 1
+        cell["rates"].append(rate)
+        return observe(rid, j, rate)
+    eng.selector.observe_accept = observe_accept
+    build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = eng.run(max_slots=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    unfinished = [r.rid for r in eng.requests.values() if not r.done]
+    check(not unfinished, f"zoo: unfinished requests {unfinished}")
+    for name in ("fused_paged_verify", "fused_paged_decode"):
+        check(launches.get(name, 0) > 0, f"zoo: {name} never launched")
+    per = []
+    for j, b in enumerate(ssms):
+        row = dict(ssm=b.cfg.name, d_model=b.cfg.d_model)
+        for h, tag in ((False, "easy"), (True, "hard")):
+            c = table[(j, h)]
+            row[tag] = dict(selections=c["slots"], acceptance=(
+                float(np.mean(c["rates"])) if c["rates"] else None))
+        per.append(row)
+    return dict(requests=len(reqs), easy=sum(not h for h in hard.values()),
+                hard=sum(hard.values()), slots=len(eng.slot_log),
+                accepted_tokens=stats["accepted_tokens"],
+                mean_accept=stats["mean_accept"], wall_s=wall,
+                launches=launches, per_ssm=per)
+
+
+def phase_zoo(report):
+    """The trained zoo (``examples/train_distill_ssm_torch.py``): trained
+    on the card into ``build/smoke_zoo`` (removed after), then served
+    trained and at random init (the same configs, seeds 0-5), a float32
+    lossless run against its LLM's greedy decoding, and the serving
+    launcher on it (``examples/serve_spin_torch.py --zoo``)."""
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import train_distill_ssm_torch as zoo_example
+    zoo_dir = os.path.join(ROOT, "build", "smoke_zoo")
+    shutil.rmtree(zoo_dir, ignore_errors=True)
+    trained = {}
+    try:
+        llm, ssms = zoo_example.build_zoo(force=True, device="cuda",
+                                          zoo_dir=zoo_dir, log=log,
+                                          record=trained)
+    finally:
+        shutil.rmtree(zoo_dir, ignore_errors=True)
+    for key, r in trained.items():
+        check(math.isfinite(r["final_loss"]), f"zoo {key}: loss not finite")
+        log(f"zoo train {key} {r['name']}: {r['steps']} steps, final loss "
+            f"{r['final_loss']:.4f}, {r['seconds']:.1f} s")
+    runs = {"trained": zoo_serve(llm, ssms)}
+    rand_llm = sd.Bundle(llm.cfg, T.init_params(llm.cfg, 0, device="cuda"))
+    rand = [sd.Bundle(b.cfg, T.init_params(b.cfg, i + 1, device="cuda"))
+            for i, b in enumerate(ssms)]
+    runs["random"] = zoo_serve(rand_llm, rand)
+    del rand_llm, rand
+    for what, run in runs.items():
+        log(f"zoo serve [{what}] " + json.dumps(run))
+        for row in run["per_ssm"]:
+            log(f"  zoo [{what}] {row['ssm']} (d {row['d_model']}): "
+                + "; ".join(
+                    f"{tag} selections {row[tag]['selections']} acceptance "
+                    + ("-" if row[tag]["acceptance"] is None
+                       else f"{row[tag]['acceptance']:.3f}")
+                    for tag in ("easy", "hard")))
+    check(llm.cfg.dtype == "float32", "the zoo is not float32")
+    line, _, _ = lossless_run(llm, ssms, "on")
+    bad = [d for d in line["divergences"] if d["gap"] >= 1e-4]
+    check(not bad, f"zoo: tokens differ from greedy decoding at top-2 gaps "
+          f">= 1e-4: {bad}")
+    log("lossless zoo (float32, trained) " + json.dumps(line))
+    from repro_torch.launch import serve as serve_launcher
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = serve_launcher.main(
+            ["--device", "cuda", "--dataset", "mix", "--requests", "8",
+             "--fused-kernels", "on"], zoo=(llm, ssms))
+    check(stats["scheduler"]["finished"] == 8,
+          "the serving launcher did not finish the trained zoo's requests")
+    log(f"zoo serving launcher: finished {stats['scheduler']['finished']}, "
+        f"mean_accept {stats['mean_accept']:.3f}")
+    report["zoo"] = dict(train=trained, serve=runs, lossless=line,
+                         launcher=dict(finished=stats["scheduler"][
+                             "finished"], mean_accept=stats["mean_accept"]))
+    del llm, ssms
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------- main --
@@ -1987,6 +2147,7 @@ def main():
         report.setdefault("phase_s", {})[phase.__name__] = dt
         return out
 
+    dryruns = start_dryrun()
     # this run's tile cache: empty (the kernels' own plans) but in the
     # autotune phase
     autotune.CACHE_PATH = TUNE_CACHE
@@ -2016,8 +2177,9 @@ def main():
     timed(phase_moe_lossless, report)
     flash_launches = timed(phase_flash, report, timer,
                            [mixtral_qkv, llama_qkv])
+    timed(phase_zoo, report)
     timed(phase_train, report)
-    timed(phase_dryrun, report)
+    timed(phase_dryrun, report, dryruns)
     launches = {"paged": paged_launches, "dense": dense_launches,
                 "ops": ops_launches, "flash": flash_launches}
     inputs = {**captured, "verify_attention": dense_captured, **ops_inputs,

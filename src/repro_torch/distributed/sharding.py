@@ -228,6 +228,7 @@ _CTX = _Ctx()
 @contextlib.contextmanager
 def use_rules(mesh, rules: Rules):
     prev = (_CTX.mesh, _CTX.rules)
+    register_strategies()
     _CTX.mesh, _CTX.rules = mesh, rules
     try:
         yield
@@ -237,6 +238,14 @@ def use_rules(mesh, rules: Rules):
 
 def active() -> bool:
     return _CTX.mesh is not None
+
+
+def layout(*dims: Optional[str], shape: Sequence[int]) -> tuple:
+    """The active rule table's placements for a tensor of ``shape`` whose
+    dims are named ``dims`` (trailing dims not named are replicated)."""
+    names = list(dims) + [None] * (len(shape) - len(dims))
+    return placements(assign_spec(_CTX.rules, names, shape, _CTX.mesh),
+                      _CTX.mesh)
 
 
 def constrain(x, *dims: Optional[str], shape: Optional[Sequence[int]] = None):
@@ -256,10 +265,10 @@ def constrain(x, *dims: Optional[str], shape: Optional[Sequence[int]] = None):
         return x
     names = list(dims) + [None] * (x.ndim - len(dims))
     spec = assign_spec(_CTX.rules, names, shape or x.shape, _CTX.mesh)
-    want = placements(spec, _CTX.mesh)
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(_CTX.mesh, want)
+    # redistributed even where the layout already matches: the backward
+    # then lays the gradient out alike, as the reference's constraint
+    # also constrains the cotangent
+    return x.redistribute(_CTX.mesh, placements(spec, _CTX.mesh))
 
 
 def is_dtensor(x) -> bool:
@@ -277,6 +286,24 @@ def _plain(x, mesh, placements=None):
     return x.redistribute(mesh, placements or replicated(mesh)).to_local()
 
 
+def _shard_offsets(mesh, placements, shape, local_shape) -> list:
+    """Where this device's shard starts in each dim of a tensor of
+    ``shape`` laid out by ``placements`` (shards over several mesh dims
+    split in mesh-dim order: pod, then data); the shards must be even."""
+    coord = mesh.get_coordinate()
+    offsets, parts = [0] * len(shape), [1] * len(shape)
+    for m, p in enumerate(placements):
+        if p.is_shard():
+            offsets[p.dim] = offsets[p.dim] * mesh.size(m) + coord[m]
+            parts[p.dim] *= mesh.size(m)
+    for d in range(len(shape)):
+        if shape[d] != local_shape[d] * parts[d]:
+            raise ValueError(f"dim {d} of {tuple(shape)} is not split "
+                             f"evenly over {parts[d]} shards")
+        offsets[d] *= local_shape[d]
+    return offsets
+
+
 def shard_write(dst, index, src) -> None:
     """``dst[index] = src`` for a DTensor ``dst`` whose leading
     ``len(index)`` dims are indexed (a cache's batch rows and slots), each
@@ -292,19 +319,8 @@ def shard_write(dst, index, src) -> None:
     import torch
     from torch.distributed.tensor import Replicate, Shard
     mesh, local = dst.device_mesh, dst.to_local()
-    coord = mesh.get_coordinate()
     k = len(index)
-    offsets = [0] * dst.ndim
-    parts = [1] * dst.ndim
-    for m, p in enumerate(dst.placements):
-        if p.is_shard():
-            offsets[p.dim] = offsets[p.dim] * mesh.size(m) + coord[m]
-            parts[p.dim] *= mesh.size(m)
-    for d in range(dst.ndim):
-        if dst.shape[d] != local.shape[d] * parts[d]:
-            raise ValueError(f"dim {d} of {tuple(dst.shape)} is not split "
-                             f"evenly over {parts[d]} shards")
-        offsets[d] *= local.shape[d]
+    offsets = _shard_offsets(mesh, dst.placements, dst.shape, local.shape)
     # the updates: dim 0 the update list, then dst's trailing dims laid out
     # as dst's
     want = tuple(Shard(p.dim - k + 1) if p.is_shard() and p.dim >= k
@@ -324,8 +340,172 @@ def shard_write(dst, index, src) -> None:
     at = tuple(i[pick].clamp(0, local.shape[d] - 1)
                for d, i in enumerate(idx))
     vals = vals[pick].to(local.dtype)
-    none = (~keep.any()).reshape((1,) * vals.ndim)
+    # 0-d, so that DTensor's dispatch takes it as a scalar, not as a
+    # one-element tensor to replicate
+    none = ~keep.any()
     local[at] = torch.where(none, local[at], vals)
+
+
+# Ops on local shards --------------------------------------------------------
+#
+# Model code reaches these only where its tensors are DTensors (the
+# dry-run's cells, the tests' meshes): the ops DTensor has no strategy for
+# at the layouts the rule tables give, written as each device's work on its
+# own shards plus the collectives the reference's partitioner inserts.
+
+def on_shards(fn, mesh, args, in_placements, out_placements):
+    """``fn`` on each device's local shards (torch's ``local_map``, with the
+    inputs laid out first): every tensor of ``args`` is redistributed to its
+    entry of ``in_placements`` (a plain tensor is taken as replicated, so
+    laying it out is a local slice), ``fn`` runs on the local tensors, and
+    its output (a tensor or a tuple) is a DTensor of ``out_placements``
+    (one tuple, or one per output).  ``fn`` must be local: each output
+    shard depends only on the input shards of its device, collectives that
+    ``fn`` runs itself aside.  Gradients flow through: an input replicated
+    on a mesh dim where an output is sharded takes a partial gradient
+    there (each device saw only its shard's use of it)."""
+    from torch.distributed.tensor import DTensor, Partial
+    outs = (out_placements if isinstance(out_placements[0], tuple)
+            else (out_placements,))
+    split = [any(o[m].is_shard() for o in outs) for m in range(mesh.ndim)]
+    local = []
+    for x, want in zip(args, in_placements):
+        if want is None or x is None:
+            local.append(x)
+            continue
+        want = tuple(want)
+        if not is_dtensor(x):
+            x = DTensor.from_local(x, mesh, replicated(mesh),
+                                   run_check=False)
+        if tuple(x.placements) != want:
+            x = x.redistribute(mesh, want)
+        grad = tuple(Partial() if p.is_replicate() and split[m] else p
+                     for m, p in enumerate(want))
+        local.append(x.to_local(grad_placements=grad))
+    out = fn(*local)
+    if isinstance(out_placements[0], tuple):
+        return tuple(DTensor.from_local(o, mesh, p, run_check=False)
+                     for o, p in zip(out, out_placements))
+    return DTensor.from_local(out, mesh, out_placements, run_check=False)
+
+
+def all_reduce_over(x, op: str, mesh, mesh_dims: Sequence[int]):
+    """``x`` (a local tensor) reduced with ``op`` ("sum", "max") over each
+    of ``mesh_dims`` of ``mesh``: a functional collective, which the
+    dry-run counts."""
+    from torch.distributed import _functional_collectives as funcol
+    for m in mesh_dims:
+        x = funcol.all_reduce(x, op, (mesh, m))
+        x = x.wait() if hasattr(x, "wait") else x
+    return x
+
+
+def _row_gather_fn():
+    import torch
+
+    class RowGather(torch.autograd.Function):
+        """``table[ids]`` over the leading ``len(ids)`` dims of a table
+        split over mesh dims: each device looks the ids up in its own
+        shard, zeros elsewhere, and the partial results are summed over
+        those mesh dims; the backward scatter-adds into the device's own
+        shard, with no collective."""
+
+        @staticmethod
+        def forward(ctx, table, offsets, mesh, mesh_dims, *ids):
+            at, hit = [], None
+            for d, (i, off) in enumerate(zip(ids, offsets)):
+                i = i.long() - off
+                ok = (i >= 0) & (i < table.shape[d])
+                hit = ok if hit is None else hit & ok
+                at.append(i.clamp(0, table.shape[d] - 1))
+            at = tuple(torch.broadcast_tensors(*at))
+            out = table[at]
+            out = out * hit.reshape(hit.shape + (1,) * (out.ndim - hit.ndim)
+                                    ).to(out.dtype)
+            ctx.save_for_backward(hit, *at)
+            ctx.table_shape = table.shape
+            return all_reduce_over(out, "sum", mesh, mesh_dims)
+
+        @staticmethod
+        def backward(ctx, g):
+            hit, *at = ctx.saved_tensors
+            g = g * hit.reshape(hit.shape + (1,) * (g.ndim - hit.ndim)
+                                ).to(g.dtype)
+            grad = torch.zeros(ctx.table_shape, dtype=g.dtype,
+                               device=g.device)
+            grad.index_put_(tuple(at), g, accumulate=True)
+            return (grad, None, None, None) + (None,) * len(at)
+
+    return RowGather
+
+
+_ROW_GATHER = []
+
+
+def row_gather(table, *ids):
+    """``table[ids]`` for a DTensor ``table`` indexed on its leading
+    ``len(ids)`` dims (an embedding table by token, a token list by slot,
+    an expert output grid by (expert, slot)); the ids alike in shape.  The
+    indexed dims stay split where the table splits them (the ids are
+    replicated over those mesh dims, and the looked-up rows summed over
+    them); over every other mesh dim the table is gathered (as each FSDP
+    weight is for its use) and the ids keep their layout, which the output
+    follows.  The table's gradient is its own layout's: its shards of the
+    indexed dims, partial over the mesh dims that split the ids."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not _ROW_GATHER:
+        _ROW_GATHER.append(_row_gather_fn())
+    mesh, k = table.device_mesh, len(ids)
+    rows = {m: p.dim for m, p in enumerate(table.placements)
+            if type(p) is Shard and p.dim < k}
+    ids = [i if is_dtensor(i) else DTensor.from_local(
+        i, mesh, replicated(mesh), run_check=False) for i in ids]
+    ip = tuple(Replicate() if m in rows or type(p) is not Shard else p
+               for m, p in enumerate(ids[0].placements))
+    ids = [i if tuple(i.placements) == ip else i.redistribute(mesh, ip)
+           for i in ids]
+    tp = tuple(Shard(rows[m]) if m in rows else Replicate()
+               for m in range(mesh.ndim))
+    grad = tuple(Shard(rows[m]) if m in rows else
+                 Partial() if ip[m].is_shard() else Replicate()
+                 for m in range(mesh.ndim))
+    t = table if tuple(table.placements) == tp else table.redistribute(
+        mesh, tp)
+    local = t.to_local(grad_placements=grad)
+    offs = _shard_offsets(mesh, tp, t.shape, local.shape)[:k]
+    out = _ROW_GATHER[0].apply(local, offs, mesh, sorted(rows),
+                               *[i.to_local() for i in ids])
+    return DTensor.from_local(out, mesh, ip, run_check=False)
+
+
+_STRATEGIES = []
+
+
+def register_strategies() -> None:
+    """Pointwise DTensor sharding strategies for the ops the models run
+    that DTensor has none for (``F.logsigmoid``'s forward and backward):
+    every tensor argument and output laid out alike.  Once per process."""
+    if _STRATEGIES:
+        return
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    aten = torch.ops.aten
+
+    def pointwise(n_out, n_in):
+        def strategy(x, *rest):
+            same = [([Replicate()] * n_out, [Replicate()] * n_in)]
+            for d in range(len(x.shape)):
+                same.append(([Shard(d)] * n_out, [Shard(d)] * n_in))
+            return same
+        return strategy
+
+    # log_sigmoid_forward(x) -> (out, buffer); on the CPU the buffer has x's
+    # shape (the only device a DTensor of the models runs on)
+    register_sharding(aten.log_sigmoid_forward.default)(pointwise(2, 1))
+    # log_sigmoid_backward(grad, x, buffer) -> grad_x
+    register_sharding(aten.log_sigmoid_backward.default)(pointwise(1, 3))
+    _STRATEGIES.append(True)
 
 
 # Sharding trees ------------------------------------------------------------

@@ -130,8 +130,23 @@ _FREE = {"empty", "empty_strided", "empty_like", "zeros", "full", "device",
          "sym_size", "sym_stride", "sym_numel", "sym_storage_offset"}
 
 
+_PRIM_DEVICE = torch.ops.prim.device.default
+
+
 def _tensors(tree):
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _op_tensors(args, kwargs):
+    """The tensors of an aten op's arguments (tensors and tensor lists, no
+    deeper): :func:`_tensors` without a pytree walk, once per op."""
+    out = []
+    for a in (*args, *kwargs.values()):
+        if isinstance(a, torch.Tensor):
+            out.append(a)
+        elif isinstance(a, (list, tuple)):
+            out.extend(t for t in a if isinstance(t, torch.Tensor))
+    return out
 
 
 def _nbytes(t) -> int:
@@ -197,7 +212,10 @@ class DeviceCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        ins = _tensors((args, kwargs))
+        if func is _PRIM_DEVICE:
+            # a tensor's device, asked for by most ops: no work
+            return func(*args, **kwargs)
+        ins = _op_tensors(args, kwargs)
         if any(isinstance(t, DTensor) for t in ins):
             return NotImplemented
         out = func(*args, **kwargs)
@@ -212,7 +230,7 @@ class DeviceCounter(TorchDispatchMode):
         if packet in self.flop_registry:
             self.flops += float(self.flop_registry[packet](
                 *args, **kwargs, out_val=out))
-        outs = _tensors(out)
+        outs = _op_tensors(out if isinstance(out, tuple) else (out,), {})
         seen = {id(t) for t in ins}
         self.bytes += float(sum(_nbytes(t) for t in ins)
                             + sum(_nbytes(t) for t in outs

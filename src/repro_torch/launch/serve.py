@@ -219,7 +219,11 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
+def main(argv=None, zoo=None):
+    """Serve as the flags say; ``zoo`` (llm, ssms), as
+    ``examples/train_distill_ssm_torch.build_zoo`` returns a trained one,
+    replaces the random zoo (``--vocab`` and ``--n-ssms`` are then the
+    zoo's)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     try:
@@ -292,7 +296,12 @@ def main(argv=None):
                  "a zero-block share degenerates that replica to "
                  "one-request-at-a-time service")
 
-    llm, ssms = build_zoo(args.vocab, args.seed, args.n_ssms, args.device)
+    if zoo is None:
+        llm, ssms = build_zoo(args.vocab, args.seed, args.n_ssms,
+                              args.device)
+    else:
+        llm, ssms = zoo
+        args.vocab, args.n_ssms = llm.cfg.vocab_size, len(ssms)
     reqs = make_workload(args.dataset, args.requests, args.vocab,
                          seed=args.seed, scale=args.scale,
                          arrival_rate=arrival_rate,

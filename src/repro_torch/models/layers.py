@@ -14,7 +14,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (all_reduce_over, constrain,
+                                              is_dtensor, on_shards,
+                                              row_gather)
 
 NEG_INF = -1e30
 
@@ -54,12 +56,15 @@ def tree_term(q_anc, kv_node):
 
 
 def _attn_block(q, k, v, q_pos, kv_pos, q_seg, kv_seg, window, scale,
-                q_anc=None, kv_node=None):
+                q_anc=None, kv_node=None, kv_split=None):
     """Attention for one query block against full K/V.
 
     q: (B, Qb, Kh, G, D)   k, v: (B, Skv, Kh, D)
     q_pos: (B, Qb)  kv_pos: (B, Skv)  segs same shapes (or None)
     q_anc / kv_node (optional, same shapes as segs): tree topology term.
+    kv_split (mesh, mesh dims): K/V hold this device's shard of the
+    sequence; the softmax's max and sum and the output are reduced over
+    those mesh dims.
     """
     qf = q.float().permute(0, 2, 3, 1, 4)  # (B, Kh, G, Qb, D)
     kf = k.float().permute(0, 2, 3, 1)[:, :, None]  # (B, Kh, 1, D, S)
@@ -73,14 +78,78 @@ def _attn_block(q, k, v, q_pos, kv_pos, q_seg, kv_seg, window, scale,
         mask = mask & tree_term(q_anc[:, :, None], kv_node[:, None, :])
     s = torch.where(mask[:, None, None], s, NEG_INF)
     m = torch.amax(s, dim=-1, keepdim=True)
+    if kv_split:
+        m = all_reduce_over(m, "max", *kv_split)
     # rows with no valid key (padding query) -> all NEG_INF; keep finite
     m = torch.clamp(m, min=-1e29)
     p = torch.exp(s - m)
     denom = torch.sum(p, dim=-1, keepdim=True)
+    if kv_split:
+        denom = all_reduce_over(denom, "sum", *kv_split)
     p = p / torch.clamp(denom, min=1e-30)
     vf = v.float().permute(0, 2, 1, 3)[:, :, None]  # (B, Kh, 1, S, D)
     o = torch.matmul(p, vf)  # (B, Kh, G, Qb, D)
+    if kv_split:
+        o = all_reduce_over(o, "sum", *kv_split)
     return o.permute(0, 3, 1, 2, 4).to(v.dtype)
+
+
+def _attn_block_sharded(q, k, v, q_pos, kv_pos, q_seg, kv_seg, window,
+                        scale, q_anc=None, kv_node=None):
+    """:func:`_attn_block` over DTensors laid out by a rule table, q (B,
+    Qb, H, D) with its heads unsplit into groups: each device attends its
+    shards.  K's layout (batch, and kv heads or the cache sequence) sets
+    the queries', positions', segments' and tree terms'.  Where K's kv
+    heads stay whole on a mesh dim but the query heads split evenly there
+    (GQA: kv heads fewer than the dim), each device takes its query heads
+    and the kv heads they read, as the reference's partitioner splits the
+    heads.  Where K's sequence is split, each device scores its slots and
+    the softmax is merged over the split (the max, the sum and the output
+    all-reduced, as the reference's partitioner reduces a softmax over a
+    sharded dim); K/V are never gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, kp = k.device_mesh, tuple(k.placements)
+    if tuple(v.placements) != kp or any(
+            not (p.is_replicate() or type(p) is Shard and p.dim < 3)
+            for p in kp):
+        raise ValueError(f"attention over K laid out as {kp} and V as "
+                         f"{tuple(v.placements)}: K and V must be split "
+                         f"alike, on batch, sequence or kv heads only")
+    H, Kh = q.shape[2], k.shape[2]
+    G = H // Kh
+    qp = [p if p in (Shard(0), Shard(2)) else Replicate() for p in kp]
+    # one mesh dim may split whole query heads where K's heads stay whole:
+    # each device's heads then read one kv head, or whole groups
+    head_split = None
+    if Shard(2) not in kp:
+        for m, p in enumerate(kp):
+            n = mesh.size(m)
+            if p.is_replicate() and n > 1 and H % n == 0 and (
+                    G % (H // n) == 0 or (H // n) % G == 0):
+                qp[m], head_split = Shard(2), m
+                break
+    qp = tuple(qp)
+    q_row = tuple(Shard(0) if p == Shard(0) else Replicate() for p in kp)
+    kv_row = tuple(p if p in (Shard(0), Shard(1)) else Replicate()
+                   for p in kp)
+    split = [m for m, p in enumerate(kp) if p == Shard(1)]
+
+    def core(q, k, v, q_pos, kv_pos, q_seg, kv_seg, q_anc, kv_node):
+        B, Qb, Hl, D = q.shape
+        if head_split is not None:
+            n_kv = max(1, Hl // G)
+            first = mesh.get_coordinate()[head_split] * Hl // G
+            k, v = (t[:, :, first:first + n_kv] for t in (k, v))
+        n_kv = k.shape[2]
+        o = _attn_block(q.reshape(B, Qb, n_kv, Hl // n_kv, D), k, v, q_pos,
+                        kv_pos, q_seg, kv_seg, window, scale, q_anc,
+                        kv_node, kv_split=(mesh, split) if split else None)
+        return o.reshape(B, Qb, Hl, D)
+
+    return on_shards(core, mesh,
+                     (q, k, v, q_pos, kv_pos, q_seg, kv_seg, q_anc, kv_node),
+                     (qp, kp, kp, q_row, kv_row, q_row, kv_row, q_row,
+                      kv_row), qp)
 
 
 def attention(q, k, v, *, q_positions, kv_positions, q_segments=None,
@@ -94,25 +163,32 @@ def attention(q, k, v, *, q_positions, kv_positions, q_segments=None,
     softmax denominator sums over all packed tokens of the same request and
     nothing else.  q_anc / kv_node (optional) add the tree-speculation
     topology term.  Queries are processed ``q_block`` at a time; each query
-    row is independent, so the blocking never changes a result.
+    row is independent, so the blocking never changes a result.  DTensors
+    (a rule table's layouts) go through :func:`_attn_block_sharded`, the
+    query heads laid out as the table lays out heads.
     """
     B, Sq, Hq, D = q.shape
     Kh = k.shape[2]
     G = Hq // Kh
     scale = 1.0 / math.sqrt(D)
-    # under a rule table the query heads are laid out as the kv heads
-    # allow, so that the split into (Kh, G) groups is even
-    q = constrain(q, "batch", "seq", "kv_heads", shape=(B, Sq, Kh))
-    qg = q.reshape(B, Sq, Kh, G, D)
+    sharded = is_dtensor(k)
+    if sharded:
+        q = constrain(q, "batch", "seq", "heads")
+    else:
+        q = q.reshape(B, Sq, Kh, G, D)
+    block = _attn_block_sharded if sharded else _attn_block
     outs = []
     for lo in range(0, Sq, q_block):
         hi = min(Sq, lo + q_block)
-        outs.append(_attn_block(
-            qg[:, lo:hi], k, v, q_positions[:, lo:hi], kv_positions,
+        outs.append(block(
+            q[:, lo:hi], k, v, q_positions[:, lo:hi], kv_positions,
             None if q_segments is None else q_segments[:, lo:hi],
             kv_segments, window, scale,
             None if q_anc is None else q_anc[:, lo:hi], kv_node))
     o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    if sharded:
+        # laid out as the queries were (and so is its gradient)
+        return constrain(o, "batch", "seq", "heads")
     return o.reshape(B, Sq, Hq, D)
 
 
@@ -122,8 +198,10 @@ def swiglu(x, w_gate, w_up, w_down):
 
 
 def embed(tokens, table):
-    # an embedding op, not indexing: a row gather either way, and DTensor
-    # lays it out over a batch sharded on two mesh dims (pod, data)
+    # an embedding op, not indexing; a table laid out over a mesh (its
+    # vocab split over model) is looked up shard by shard
+    if is_dtensor(table):
+        return row_gather(table, tokens)
     return F.embedding(tokens.long(), table)
 
 

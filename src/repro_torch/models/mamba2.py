@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor, layout, on_shards
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import P
 
@@ -86,6 +87,20 @@ def _ssd_chunk(xh, Bk, Ck, dt, a_log, state):
     return y, new_state
 
 
+def _ssd_chunk_sharded(xh, Bk, Ck, dt, a_log, state):
+    """:func:`_ssd_chunk` over DTensors: each device runs its shards of the
+    batch and the heads, as the active rule table lays them out (the
+    einsums keep batch and heads apart); B and C, shared by every head,
+    are split over the batch only."""
+    B, Q, nh, _ = xh.shape
+    hp = layout("batch", "seq", "ssm_heads", shape=(B, Q, nh))
+    bp = layout("batch", shape=(B,))
+    sp = layout("batch", "ssm_heads", shape=(B, nh))
+    return on_shards(_ssd_chunk, xh.device_mesh,
+                     (xh, Bk, Ck, dt, a_log, state),
+                     (hp, bp, bp, hp, hp, sp), (hp, sp))
+
+
 def forward(params, x, cfg, *, state=None, chunk: int = 128):
     """x: (B, S, d).  Returns (out, Mamba2State).  A sequence longer than
     ``chunk`` must be a whole number of chunks, as in the reference."""
@@ -109,8 +124,9 @@ def forward(params, x, cfg, *, state=None, chunk: int = 128):
     s0 = state.ssd if state is not None else torch.zeros(
         (Bsz, nh, hd, ds), dtype=torch.float32, device=x.device)
 
+    step = _ssd_chunk_sharded if is_dtensor(xh) else _ssd_chunk
     if S <= chunk:
-        y, s_new = _ssd_chunk(xh, Bk, Ck, dt, a_log, s0)
+        y, s_new = step(xh, Bk, Ck, dt, a_log, s0)
     else:
         if S % chunk:
             raise ValueError(f"sequence length {S} is not a multiple of "
@@ -118,8 +134,8 @@ def forward(params, x, cfg, *, state=None, chunk: int = 128):
         ys, s_new = [], s0
         for lo in range(0, S, chunk):
             sl = slice(lo, lo + chunk)
-            y_c, s_new = _ssd_chunk(xh[:, sl], Bk[:, sl], Ck[:, sl],
-                                    dt[:, sl], a_log[:, sl], s_new)
+            y_c, s_new = step(xh[:, sl], Bk[:, sl], Ck[:, sl], dt[:, sl],
+                              a_log[:, sl], s_new)
             ys.append(y_c)
         y = torch.cat(ys, dim=1)
 

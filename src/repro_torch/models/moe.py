@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor, row_gather
+
 
 def capacity(n_tokens: int, n_experts: int, top_k: int, cf: float) -> int:
     c = int(n_tokens * top_k * cf / n_experts)
@@ -59,12 +61,22 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int, cf: float):
     slot_tok = slot_tok[: E * C].view(E, C)
     slot_valid = slot_valid[: E * C].view(E, C)
 
-    xin = x[slot_tok] * slot_valid[..., None]  # (E, C, d)
+    if is_dtensor(x):
+        # the token rows stay split over the batch's mesh dims
+        xin = row_gather(x, slot_tok)
+    else:
+        xin = x[slot_tok]
+    xin = xin * slot_valid[..., None]  # (E, C, d)
     h = F.silu(torch.bmm(xin, w_gate)) * torch.bmm(xin, w_up)
     y = torch.bmm(h, w_down)  # (E, C, d)
 
     # combine: each (token, choice) reads its expert's output slot
-    yk = y[flat_e, torch.where(keep, pos, 0)]  # (T*k, d)
+    at = torch.where(keep, pos, 0)
+    if is_dtensor(y):
+        # the expert grid stays split where it is (experts, slots)
+        yk = row_gather(y, flat_e, at)
+    else:
+        yk = y[flat_e, at]  # (T*k, d)
     yk = yk * keep[:, None].to(y.dtype)
     yk = yk.reshape(T, top_k, d) * gate_vals[..., None].to(y.dtype)
     out = yk.sum(1)

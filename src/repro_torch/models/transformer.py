@@ -39,7 +39,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.distributed.sharding import (constrain, is_dtensor,
-                                              shard_write)
+                                              on_shards, shard_write)
 from repro_torch.kernels import quant
 from repro_torch.models import config as C
 from repro_torch.models import mamba2, moe, xlstm
@@ -409,7 +409,11 @@ def _attn_block(p, x, cfg, opts, *, positions, segments, kv_cache, widx,
                       q_segments=segments, kv_segments=segments,
                       window=cfg.sliding_window, q_block=opts.q_block)
     nq, hd = cfg.n_heads, cfg.hd
-    o = o.reshape(B, S, nq * hd) @ p["wo"].reshape(nq * hd, d)
+    # under a rule table the merged heads are laid out as the head count
+    # allows (and so is their gradient, split back into heads)
+    o = constrain(o.reshape(B, S, nq * hd), "batch", "seq", "heads",
+                  shape=(B, S, nq))
+    o = o @ p["wo"].reshape(nq * hd, d)
     x = constrain(x + o, "batch", "seq", "act_embed")
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if not is_moe:
@@ -502,7 +506,12 @@ def _inputs_to_x(cfg, params, tokens, inputs_embeds=None,
     else:
         x = inputs_embeds.to(cfg.compute_dtype)
     if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(cfg.compute_dtype), x], dim=1)
+        # under a rule table both parts are laid out alike first, so that
+        # the concatenation needs no layout check on their values
+        pre = constrain(prefix_embeds.to(cfg.compute_dtype), "batch", "seq",
+                        "act_embed")
+        x = torch.cat([pre, constrain(x, "batch", "seq", "act_embed")],
+                      dim=1)
     return x
 
 
@@ -573,8 +582,22 @@ def prefill(params, cfg, *, tokens=None, inputs_embeds=None,
                       attend_cache=False)
     if last_logits_only:
         idx = torch.clamp(lengths.long() - 1, min=0)
-        x = x[torch.arange(B, device=dev), idx][:, None]
+        x = last_rows(x, idx)
     return _logits(cfg, params, x), cache
+
+
+def last_rows(x, idx):
+    """``x[b, idx[b]]`` of x (B, S, d) as (B, 1, d).  Laid out over a mesh,
+    each device gathers its own rows (x and idx split alike over the
+    batch)."""
+    if not is_dtensor(x):
+        return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+    from torch.distributed.tensor import Replicate, Shard
+    xp = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+               for p in x.placements)
+    rows = tuple(p if p == Shard(0) else Replicate() for p in xp)
+    return on_shards(lambda x, idx: x.gather(1, idx[:, None, None].expand(
+        -1, 1, x.shape[-1])), x.device_mesh, (x, idx), (xp, rows), xp)
 
 
 def decode_step(params, cfg, cache, *, tokens=None, inputs_embeds=None,
@@ -664,8 +687,11 @@ def make_train_step(cfg, optimizer, opts: Opts = Opts()):
         finally:
             for p in flat:
                 p.requires_grad_(False)
-        # a leaf no forward reads (shared_attn's own ln1) takes a zero grad
-        grads = iter([torch.zeros_like(p) if g is None else g
+        # a leaf no forward reads (shared_attn's own ln1) takes a zero grad;
+        # a gradient laid out over a mesh is laid out as its parameter
+        grads = iter([torch.zeros_like(p) if g is None else
+                      g.redistribute(p.device_mesh, p.placements)
+                      if is_dtensor(g) else g
                       for p, g in zip(flat, grads)])
         grads = pp.map_tensors(lambda _: next(grads), params)
         params, opt_state = optimizer.update(params, grads, opt_state,

@@ -16,6 +16,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (constrain, is_dtensor, layout,
+                                              on_shards)
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import P
 
@@ -79,6 +81,24 @@ def _mlstm_chunk(q, k, v, ig, la, state):
     return h, MLstmState(C=C_new, n=n_new)
 
 
+def _mlstm_chunk_sharded(q, k, v, ig, la, state):
+    """:func:`_mlstm_chunk` over DTensors: each device runs its shards of
+    the batch and the heads, as the active rule table lays them out (the
+    einsums keep batch and heads apart)."""
+    B, Q, nh, dk = q.shape
+    hp = layout("batch", "seq", "heads", shape=(B, Q, nh))
+    sp = layout("batch", "heads", shape=(B, nh))
+
+    def run(q, k, v, ig, la, C, n):
+        h, st = _mlstm_chunk(q, k, v, ig, la, MLstmState(C, n))
+        return h, st.C, st.n
+
+    h, C, n = on_shards(run, q.device_mesh,
+                        (q, k, v, ig, la, state.C, state.n),
+                        (hp,) * 5 + (sp, sp), (hp, sp, sp))
+    return h, MLstmState(C, n)
+
+
 def mlstm_forward(params, x, cfg, *, state=None, chunk: int = 128):
     """x: (B, S, d).  Returns (out, MLstmState)."""
     B, S, _ = x.shape
@@ -89,17 +109,23 @@ def mlstm_forward(params, x, cfg, *, state=None, chunk: int = 128):
 
     up = x @ params["up_proj"]
     xi, z = up[..., :di], up[..., di:]
-    q = (xi @ params["wq"]).reshape(B, S, nh, dk).float()
-    k = (xi @ params["wk"]).reshape(B, S, nh, dk).float()
-    v = (xi @ params["wv"]).reshape(B, S, nh, dk).float()
+
+    def heads(w):
+        # under a rule table the (heads x dk) dim is laid out as the head
+        # count allows, so that the split into heads is even
+        y = constrain(xi @ w, "batch", "seq", "heads", shape=(B, S, nh))
+        return y.reshape(B, S, nh, dk).float()
+
+    q, k, v = heads(params["wq"]), heads(params["wk"]), heads(params["wv"])
     q = q / float(dk) ** 0.5
     gates = (x @ params["w_gates"] + params["b_gates"]).float()
     ig = torch.exp(torch.clamp(gates[..., :nh], -CLAMP, CLAMP))  # (B,S,nh)
     la = F.logsigmoid(gates[..., nh:])  # log forget decay
 
     s0 = state if state is not None else mlstm_init_state(cfg, B, x.device)
+    step = _mlstm_chunk_sharded if is_dtensor(q) else _mlstm_chunk
     if S <= chunk:
-        h, s_new = _mlstm_chunk(q, k, v, ig, la, s0)
+        h, s_new = step(q, k, v, ig, la, s0)
     else:
         if S % chunk:
             raise ValueError(f"sequence length {S} is not a multiple of "
@@ -107,8 +133,8 @@ def mlstm_forward(params, x, cfg, *, state=None, chunk: int = 128):
         hs, s_new = [], s0
         for lo in range(0, S, chunk):
             sl = slice(lo, lo + chunk)
-            h_c, s_new = _mlstm_chunk(q[:, sl], k[:, sl], v[:, sl],
-                                      ig[:, sl], la[:, sl], s_new)
+            h_c, s_new = step(q[:, sl], k[:, sl], v[:, sl], ig[:, sl],
+                              la[:, sl], s_new)
             hs.append(h_c)
         h = torch.cat(hs, dim=1)
 
@@ -145,22 +171,16 @@ def slstm_spec(cfg):
     }
 
 
-def slstm_forward(params, x, cfg, *, state=None):
-    """Sequential sLSTM.  x: (B, S, d).  Returns (out, SLstmState)."""
-    B, S, d = x.shape
-    nh = cfg.n_heads
-    hd = d // nh
-    dt_ = x.dtype
-
-    xproj = (x @ params["w_in"] + params["b"]).float()
-    xproj = xproj.reshape(B, S, 4, nh, hd)
-    r = params["r"].float()
-    s = state if state is not None else slstm_init_state(cfg, B, x.device)
+def _slstm_scan(xproj, r, s):
+    """The recurrence over xproj (B, S, 4, nh, hd) from state ``s``.
+    Returns (h (B, S, nh, hd), the last SLstmState)."""
     hs = []
-    for t in range(S):
+    # one unbind each, not a select a step: a select's gradient is a
+    # zero tensor of the whole input, one a step
+    for x_t in xproj.unbind(1):
         # recurrent contribution from h_{t-1}
-        g = xproj[:, t] + torch.einsum("bhd,ghde->bghe", s.h, r)
-        it, ft, zt, ot = g[:, 0], g[:, 1], g[:, 2], g[:, 3]
+        g = x_t + torch.einsum("bhd,ghde->bghe", s.h, r)
+        it, ft, zt, ot = g.unbind(1)
         m_new = torch.maximum(ft + s.m, it)
         i_p = torch.exp(it - m_new)
         f_p = torch.exp(ft + s.m - m_new)
@@ -169,7 +189,45 @@ def slstm_forward(params, x, cfg, *, state=None):
         h_new = torch.sigmoid(ot) * c_new / torch.clamp(n_new, min=1.0)
         s = SLstmState(c_new, n_new, h_new, m_new)
         hs.append(h_new)
-    h = torch.stack(hs, dim=1).reshape(B, S, d).to(dt_)
+    return torch.stack(hs, dim=1), s
+
+
+def _slstm_scan_sharded(xproj, r, s):
+    """:func:`_slstm_scan` over DTensors: each device steps its shards of
+    the batch and the heads, as the active rule table lays them out (every
+    step is local, so the time loop runs on local tensors)."""
+    B, S, _, nh, _ = xproj.shape
+    xp = layout("batch", "seq", None, "heads", shape=xproj.shape)
+    rp = layout(None, "heads", shape=r.shape)
+    sp = layout("batch", "heads", shape=(B, nh))
+
+    def run(xproj, r, *state):
+        h, st = _slstm_scan(xproj, r, SLstmState(*state))
+        return (h,) + tuple(st)
+
+    h, *st = on_shards(run, xproj.device_mesh, (xproj, r) + tuple(s),
+                       (xp, rp) + (sp,) * 4,
+                       (layout("batch", "seq", "heads", shape=(B, S, nh)),)
+                       + (sp,) * 4)
+    return h, SLstmState(*st)
+
+
+def slstm_forward(params, x, cfg, *, state=None):
+    """Sequential sLSTM.  x: (B, S, d).  Returns (out, SLstmState)."""
+    B, S, d = x.shape
+    nh = cfg.n_heads
+    hd = d // nh
+    dt_ = x.dtype
+
+    xproj = (x @ params["w_in"] + params["b"]).float()
+    # under a rule table the gates' dim is laid out as the table says
+    # (whole), so that the split into (gate, head, hd) is even
+    xproj = constrain(xproj, "batch", "seq").reshape(B, S, 4, nh, hd)
+    r = params["r"].float()
+    s = state if state is not None else slstm_init_state(cfg, B, x.device)
+    scan = _slstm_scan_sharded if is_dtensor(xproj) else _slstm_scan
+    h, s = scan(xproj, r, s)
+    h = h.reshape(B, S, d).to(dt_)
     h = rms_norm(h, params["norm_w"], cfg.norm_eps)
     up = h @ params["ff_up"]
     ff = up.shape[-1] // 2

@@ -34,17 +34,12 @@ def _mesh(dims, names):
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x22b",
                                   "zamba2-1.2b"])
 def test_run_cell_on_a_small_fake_mesh(world8, arch, dims, names):
-    """A reduced config's decode cell on 8 fake ranks: a record of the
-    reference's keys, per device; a cell whose op has no DTensor sharding
-    strategy is recorded as FAILED with its error and the model line that
-    raised, as the reference records a cell that does not compile."""
+    """A reduced config's decode cell on 8 fake ranks lays out: a record
+    of the reference's keys, per device."""
     cfg = registry.reduced_for(arch)
     rec = D.run_cell(arch, "decode_32k", multi_pod="pod" in names,
                      roofline=True, cfg=cfg, mesh=_mesh(dims, names))
-    assert rec["status"] in ("ok", "FAILED")
-    if rec["status"] == "FAILED":
-        assert rec["error"] and rec["at"].startswith("repro_torch/")
-        return
+    assert rec["status"] == "ok", (rec.get("at"), rec.get("error"))
     assert rec["n_chips"] == 8 and rec["flops"] > 0 and rec["bytes"] > 0
     assert rec["collective_bytes"] == rec["collectives"]["total"] > 0
     mem = rec["memory"]
@@ -136,3 +131,20 @@ def test_json_records_feed_the_tuner(tmp_path):
     assert autotune.roofline_candidates("decode", 16, str(out)) == [
         autotune.FusedConfig(bq=1, bk=4, depth=3),
         autotune.FusedConfig(bq=1, bk=4, depth=4)]
+
+
+def test_a_cell_whose_op_raises_is_recorded_as_failed(world8, monkeypatch):
+    """An op the step cannot lay out raises inside the model; the cell is
+    recorded as FAILED with the error and the model line that raised, as
+    the reference records a cell that does not compile."""
+    from repro_torch.models import transformer as T
+
+    def no_strategy(*a, **k):
+        raise NotImplementedError("no sharding strategy")
+    monkeypatch.setattr(T, "swiglu", no_strategy)
+    rec = D.run_cell("qwen2-0.5b", "decode_32k", multi_pod=False,
+                     roofline=False, cfg=registry.reduced_for("qwen2-0.5b"),
+                     mesh=_mesh(*MESHES[0]))
+    assert rec["status"] == "FAILED"
+    assert rec["error"] == "NotImplementedError: no sharding strategy"
+    assert rec["at"].startswith("repro_torch/models/transformer.py")
