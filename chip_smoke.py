@@ -149,8 +149,11 @@ script then exits non-zero without its last line.  Phases:
    process of its own beside the card's phases, read after phase 17):
    ``launch/dryrun.py`` on ``DRYRUN_CELLS`` (qwen2-0.5b x decode_32k on
    the 16x16 and 2x16x16 fake meshes, and x prefill_32k on 2x16x16, a
-   cell whose last-token gather has the batch on two mesh dims); each
-   record and its seconds; every cell ``ok``;
+   cell whose last-token gather has the batch on two mesh dims and whose
+   14 query heads the model dim does not divide; mixtral-8x22b x
+   train_4k and x decode_32k on 16x16, its MoE grid and gathers); each
+   record and its seconds; every cell ``ok`` and its per-device counts
+   under ``DRYRUN_BOUNDS``;
 21. the trained zoo (before phase 17): ``examples/train_distill_ssm_torch``
    trains the LLM and the five SSMs of its capacity ladder (4 heads of D
    = d_model / 4 = 4 .. 32, float32) on the card, each model's steps,
@@ -307,7 +310,21 @@ LONG_DECODE_LENS = [32767, 4095]
 # its own (its fake 512-rank group): qwen2-0.5b's decode on both
 # production meshes (the whole table is launch/dryrun.py --all)
 DRYRUN_CELLS = [("qwen2-0.5b", "decode_32k", ["--both-meshes"]),
-                ("qwen2-0.5b", "prefill_32k", ["--multi-pod"])]
+                ("qwen2-0.5b", "prefill_32k", ["--multi-pod"]),
+                ("mixtral-8x22b", "train_4k", []),
+                ("mixtral-8x22b", "decode_32k", [])]
+# per-device counts a cell must stay under, keyed (arch, shape, 2x16x16):
+# the distribution layer's layouts that do each device's share of the
+# work (the MoE grid on its shards, the cheaper of the MoE gathers' two
+# layouts, query heads split where the model dim does not divide them);
+# each bound is a reading of the dry-run table on torch 2.11 before those
+# layouts (PERF.md section 6): mixtral train_4k 2511 TFLOP (7187 with the
+# grid's gradient at full size), its decode 4.465 GB of collectives;
+# qwen2 prefill_32k, 190.7 TFLOP on 16x16 with its heads replicated, 40
+DRYRUN_BOUNDS = {("mixtral-8x22b", "train_4k", False): {"flops": 2511e12},
+                 ("mixtral-8x22b", "decode_32k", False):
+                     {"collective_bytes": 4.465e9},
+                 ("qwen2-0.5b", "prefill_32k", True): {"flops": 40e12}}
 # the trained zoo's head dims (examples/train_distill_ssm_torch.py: 4 heads
 # of d_model / 4 for d 16, 32, 48, 64, 96 and the LLM's 128) and context
 # lengths of its requests for the kernel checks
@@ -1973,7 +1990,7 @@ def start_dryrun():
 def phase_dryrun(report, runs):
     """The distribution layer's dry-run (``launch/dryrun.py``; host only):
     the runs :func:`start_dryrun` started, each cell's record read back;
-    every cell must be ``ok``."""
+    every cell must be ``ok`` and under its :data:`DRYRUN_BOUNDS`."""
     recs = []
     for arch, shape, out, proc in runs:
         try:
@@ -1990,6 +2007,11 @@ def phase_dryrun(report, runs):
         for rec in cells:
             check(rec["status"] == "ok", f"dry-run cell not ok: {rec}")
             rec.pop("traceback", None)
+            for k, lim in DRYRUN_BOUNDS.get(
+                    (arch, shape, rec["multi_pod"]), {}).items():
+                check(rec[k] < lim, f"dry-run {arch} {shape} "
+                      f"{'2x16x16' if rec['multi_pod'] else '16x16'}: "
+                      f"{k} {rec[k]:.4g} a device, over {lim:.4g}")
             log(f"dryrun {arch} {shape} "
                 f"{'2x16x16' if rec['multi_pod'] else '16x16'} "
                 f"(cell {rec['compile_s']:.1f} s) " + json.dumps(rec))

@@ -400,18 +400,32 @@ def all_reduce_over(x, op: str, mesh, mesh_dims: Sequence[int]):
     return x
 
 
+def _collective(name, new):
+    """The functional collective ``name`` of this torch (``new``, its
+    later name, where it has one), its result waited for."""
+    from torch.distributed import _functional_collectives as funcol
+    fn = getattr(funcol, new, None) or getattr(funcol, name)
+
+    def run(*args):
+        x = fn(*args)
+        return x.wait() if hasattr(x, "wait") else x
+    return run
+
+
 def _row_gather_fn():
     import torch
 
-    class RowGather(torch.autograd.Function):
-        """``table[ids]`` over the leading ``len(ids)`` dims of a table
-        split over mesh dims: each device looks the ids up in its own
-        shard, zeros elsewhere, and the partial results are summed over
-        those mesh dims; the backward scatter-adds into the device's own
-        shard, with no collective."""
+    class MaskedLookup(torch.autograd.Function):
+        """``table[ids]`` over the leading ``len(ids)`` dims of a local
+        table (a shard where ``offsets`` place it), zeros for ids outside
+        the shard, then summed over each mesh dim of ``steps`` in turn:
+        reduce-scattered along the output dim the step names, or
+        all-reduced where it names none.  The backward all-gathers the
+        gradient where the forward scattered it, masks it and scatter-adds
+        it into the shard."""
 
         @staticmethod
-        def forward(ctx, table, offsets, mesh, mesh_dims, *ids):
+        def forward(ctx, table, offsets, mesh, steps, *ids):
             at, hit = [], None
             for d, (i, off) in enumerate(zip(ids, offsets)):
                 i = i.long() - off
@@ -422,13 +436,22 @@ def _row_gather_fn():
             out = table[at]
             out = out * hit.reshape(hit.shape + (1,) * (out.ndim - hit.ndim)
                                     ).to(out.dtype)
+            scatter = _collective("reduce_scatter_tensor",
+                                  "reduce_scatter_single")
+            for m, d in steps:
+                out = (all_reduce_over(out, "sum", mesh, [m]) if d is None
+                       else scatter(out.contiguous(), "sum", d, (mesh, m)))
             ctx.save_for_backward(hit, *at)
-            ctx.table_shape = table.shape
-            return all_reduce_over(out, "sum", mesh, mesh_dims)
+            ctx.table_shape, ctx.mesh, ctx.steps = table.shape, mesh, steps
+            return out
 
         @staticmethod
         def backward(ctx, g):
             hit, *at = ctx.saved_tensors
+            gather = _collective("all_gather_tensor", "all_gather_single")
+            for m, d in reversed(ctx.steps):
+                if d is not None:
+                    g = gather(g.contiguous(), d, (ctx.mesh, m))
             g = g * hit.reshape(hit.shape + (1,) * (g.ndim - hit.ndim)
                                 ).to(g.dtype)
             grad = torch.zeros(ctx.table_shape, dtype=g.dtype,
@@ -436,46 +459,127 @@ def _row_gather_fn():
             grad.index_put_(tuple(at), g, accumulate=True)
             return (grad, None, None, None) + (None,) * len(at)
 
-    return RowGather
+    return MaskedLookup
 
 
 _ROW_GATHER = []
+
+
+def lookup_bytes(table_shape, k, elem, placements, ids_numel, id_elem, ip,
+                 gathered, sizes) -> float:
+    """Collective bytes per device of one :func:`row_gather` layout by the
+    dry-run's ring model (an all-gather or an all-to-all its output, a
+    reduce-scatter its input, an all-reduce twice its input).  The table
+    (``placements`` on the mesh) is gathered over the mesh dims
+    ``gathered``; over every other mesh dim that splits it, and where it
+    holds partial sums, the ids are gathered (where ``ip``, their
+    placements, split them) and each device looks them up in its shard:
+    rows split there are summed back (reduce-scattered to the ids' split,
+    else all-reduced), as are partial sums; a split of the rows' trailing
+    dims is moved back to the ids' split (all-to-all), else gathered.
+    Shapes only: the choice made on it is static."""
+    split = {m: p.dim for m, p in enumerate(placements) if p.is_shard()}
+    table = math.prod(table_shape) * elem
+    row = math.prod(table_shape[k:]) * elem
+    for m in split:
+        table /= sizes[m]
+        if split[m] >= k:
+            row /= sizes[m]
+    cost = 0.0
+    for m in sorted(gathered):
+        table *= sizes[m]
+        cost += table
+        if split[m] >= k:
+            row *= sizes[m]
+    local = [m for m, p in enumerate(placements)
+             if m not in gathered and not p.is_replicate()]
+    n = ids_numel / math.prod(sizes[m] for m, p in enumerate(ip)
+                              if p.is_shard())
+    for m in local:
+        if ip[m].is_shard():
+            n *= sizes[m]
+            cost += n * id_elem * k
+    out = n * row
+    for m in local:
+        if placements[m].is_shard() and split[m] >= k:
+            continue
+        if ip[m].is_shard():
+            cost += out
+            out /= sizes[m]
+        else:
+            cost += 2 * out
+    for m in local:
+        if placements[m].is_shard() and split[m] >= k:
+            if not ip[m].is_shard():
+                out *= sizes[m]
+            cost += out
+    return cost
 
 
 def row_gather(table, *ids):
     """``table[ids]`` for a DTensor ``table`` indexed on its leading
     ``len(ids)`` dims (an embedding table by token, a token list by slot,
     an expert output grid by (expert, slot)); the ids alike in shape.  The
-    indexed dims stay split where the table splits them (the ids are
-    replicated over those mesh dims, and the looked-up rows summed over
-    them); over every other mesh dim the table is gathered (as each FSDP
-    weight is for its use) and the ids keep their layout, which the output
-    follows.  The table's gradient is its own layout's: its shards of the
-    indexed dims, partial over the mesh dims that split the ids."""
+    output's rows are whole and laid out as the ids (the first id
+    tensor's layout, which the others take): each row lands on the
+    devices that hold its id.  Each mesh dim that splits the table takes
+    one of two layouts, whichever moves fewer collective bytes
+    (:func:`lookup_bytes`, from the shapes alone): the table gathered over
+    it, then looked up locally; or the ids gathered over it and looked up
+    in each device's own shard, the rows then summed back where the
+    table's rows are split (reduce-scattered to the ids' layout where the
+    ids are split there, all-reduced where they are not) or moved back
+    where the rows' trailing dims are (all-to-all, or all-gather).  A
+    table of partial sums is looked up as it is and its rows summed
+    alike.  The table's gradient comes back in the table's own layout:
+    each layout's backward is its own transpose."""
+    import itertools
+
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     if not _ROW_GATHER:
         _ROW_GATHER.append(_row_gather_fn())
     mesh, k = table.device_mesh, len(ids)
-    rows = {m: p.dim for m, p in enumerate(table.placements)
-            if type(p) is Shard and p.dim < k}
     ids = [i if is_dtensor(i) else DTensor.from_local(
         i, mesh, replicated(mesh), run_check=False) for i in ids]
-    ip = tuple(Replicate() if m in rows or type(p) is not Shard else p
-               for m, p in enumerate(ids[0].placements))
+    ip = tuple(ids[0].placements)
     ids = [i if tuple(i.placements) == ip else i.redistribute(mesh, ip)
            for i in ids]
-    tp = tuple(Shard(rows[m]) if m in rows else Replicate()
-               for m in range(mesh.ndim))
-    grad = tuple(Shard(rows[m]) if m in rows else
-                 Partial() if ip[m].is_shard() else Replicate()
-                 for m in range(mesh.ndim))
+    places = tuple(p if type(p) is Shard or p.is_partial() else Replicate()
+                   for p in table.placements)
+    split = [m for m, p in enumerate(places) if p.is_shard()]
+    sizes = [mesh.size(m) for m in range(mesh.ndim)]
+    costs = {g: lookup_bytes(tuple(table.shape), k, table.element_size(),
+                             places, ids[0].numel(), ids[0].element_size(),
+                             ip, g, sizes)
+             for r in range(len(split) + 1)
+             for g in itertools.combinations(split, r)}
+    # the cheaper layout; on a tie, the fewer gathers
+    gathered = min(costs, key=lambda g: (costs[g], len(g)))
+    tp = tuple(Replicate() if m in gathered else p
+               for m, p in enumerate(places))
     t = table if tuple(table.placements) == tp else table.redistribute(
         mesh, tp)
+    # the table's gradient: its own shards where it stays split, whole
+    # where its sums are partial, partial where the ids split the lookup
+    grad = tuple(p if p.is_shard() else Partial() if ip[m].is_shard()
+                 and p.is_replicate() else Replicate()
+                 for m, p in enumerate(tp))
     local = t.to_local(grad_placements=grad)
     offs = _shard_offsets(mesh, tp, t.shape, local.shape)[:k]
-    out = _ROW_GATHER[0].apply(local, offs, mesh, sorted(rows),
-                               *[i.to_local() for i in ids])
-    return DTensor.from_local(out, mesh, ip, run_check=False)
+    lp = tuple(p if tp[m].is_replicate() else Replicate()
+               for m, p in enumerate(ip))
+    ids = [(i if lp == ip else i.redistribute(mesh, lp)).to_local()
+           for i in ids]
+    # summed over the mesh dims that split the rows or hold partial sums
+    steps = tuple((m, ip[m].dim if ip[m].is_shard() else None)
+                  for m, p in enumerate(tp)
+                  if p.is_partial() or p.is_shard() and p.dim < k)
+    out = _ROW_GATHER[0].apply(local, offs, mesh, steps, *ids)
+    # a split of the rows' trailing dims, moved back to the ids' layout
+    op = tuple(Shard(p.dim - k + ids[0].ndim) if p.is_shard() and p.dim >= k
+               else ip[m] for m, p in enumerate(tp))
+    out = DTensor.from_local(out, mesh, op, run_check=False)
+    return out if op == ip else out.redistribute(mesh, ip)
 
 
 _STRATEGIES = []

@@ -93,12 +93,17 @@ class FusedConfig:
 DEFAULT_CONFIG = FusedConfig()
 
 
+def _device(device) -> torch.device:
+    """``device``, by default the card: a host with none raises (pass
+    ``device="cpu"`` for the CPU), as every entry point of the port."""
+    from repro_torch.models.transformer import resolve_device
+    return resolve_device("cuda" if device is None else device)
+
+
 def backend(device=None) -> str:
     """``sm<major><minor>`` for a CUDA device (``sm90`` on an H100), else
-    the device type; the default device is the card when there is one."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    the device type; the default device is the card."""
+    device = _device(device)
     if device.type == "cuda":
         major, minor = torch.cuda.get_device_capability(device)
         return f"sm{major}{minor}"
@@ -416,8 +421,9 @@ def autotune(kind: str, *, H: int, Kh: int, D: int, gamma_max: int,
              kv_dtype: str = "bf16", path: Optional[str] = None,
              seed: int = 0, device=None,
              calls: Optional[List[dict]] = None) -> FusedConfig:
-    """Benchmark the candidate grid for one tune key on ``device`` (the card
-    when there is one), persist and return the config kept.  Safe to re-run
+    """Benchmark the candidate grid for one tune key on ``device`` (the
+    card by default; a host without one raises), persist and return the
+    config kept.  Safe to re-run
     (overwrites the entry).
 
     The candidates run on the synthetic pool (:func:`synthetic_call`), or
@@ -458,9 +464,7 @@ def autotune(kind: str, *, H: int, Kh: int, D: int, gamma_max: int,
                                  f"{(H, Kh, D, kv_dtype)}")
         on = "calls"
     else:
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        device = torch.device(device)
+        device = _device(device)
         calls = [synthetic_call(kind, H, Kh, D, gamma_max, block_size,
                                  shape, kv_dtype, seed, device)]
         on = "synthetic"

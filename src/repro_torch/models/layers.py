@@ -100,13 +100,16 @@ def _attn_block_sharded(q, k, v, q_pos, kv_pos, q_seg, kv_seg, window,
     Qb, H, D) with its heads unsplit into groups: each device attends its
     shards.  K's layout (batch, and kv heads or the cache sequence) sets
     the queries', positions', segments' and tree terms'.  Where K's kv
-    heads stay whole on a mesh dim but the query heads split evenly there
-    (GQA: kv heads fewer than the dim), each device takes its query heads
-    and the kv heads they read, as the reference's partitioner splits the
-    heads.  Where K's sequence is split, each device scores its slots and
-    the softmax is merged over the split (the max, the sum and the output
-    all-reduced, as the reference's partitioner reduces a softmax over a
-    sharded dim); K/V are never gathered."""
+    heads stay whole on a mesh dim (kv heads fewer than the dim, or not
+    dividing it), each device takes its share of the query heads and the
+    kv heads they read, as the reference's partitioner splits the heads:
+    whole groups, or whole heads of one group, where the heads split
+    evenly; else the heads padded up to a multiple of the dim, each
+    device reading the kv head of each of its query heads and the padded
+    heads' outputs dropped.  Where K's sequence is split, each device
+    scores its slots and the softmax is merged over the split (the max,
+    the sum and the output all-reduced, as the reference's partitioner
+    reduces a softmax over a sharded dim); K/V are never gathered."""
     from torch.distributed.tensor import Replicate, Shard
     mesh, kp = k.device_mesh, tuple(k.placements)
     if tuple(v.placements) != kp or any(
@@ -118,17 +121,23 @@ def _attn_block_sharded(q, k, v, q_pos, kv_pos, q_seg, kv_seg, window,
     H, Kh = q.shape[2], k.shape[2]
     G = H // Kh
     qp = [p if p in (Shard(0), Shard(2)) else Replicate() for p in kp]
-    # one mesh dim may split whole query heads where K's heads stay whole:
-    # each device's heads then read one kv head, or whole groups
-    head_split = None
+    # one mesh dim splits the query heads where K's heads stay whole: each
+    # device's heads read one kv head, or whole groups; else (padded) the
+    # device picks its heads out of the replicated queries
+    head_split, padded, Hp = None, False, H
     if Shard(2) not in kp:
         for m, p in enumerate(kp):
             n = mesh.size(m)
-            if p.is_replicate() and n > 1 and H % n == 0 and (
-                    G % (H // n) == 0 or (H // n) % G == 0):
-                qp[m], head_split = Shard(2), m
+            if p.is_replicate() and n > 1:
+                head_split = m
+                padded = H % n != 0 or not (G % (H // n) == 0
+                                            or (H // n) % G == 0)
+                Hp = -(-H // n) * n
+                if not padded:
+                    qp[m] = Shard(2)
                 break
     qp = tuple(qp)
+    op = tuple(Shard(2) if m == head_split else p for m, p in enumerate(qp))
     q_row = tuple(Shard(0) if p == Shard(0) else Replicate() for p in kp)
     kv_row = tuple(p if p in (Shard(0), Shard(1)) else Replicate()
                    for p in kp)
@@ -136,7 +145,14 @@ def _attn_block_sharded(q, k, v, q_pos, kv_pos, q_seg, kv_seg, window,
 
     def core(q, k, v, q_pos, kv_pos, q_seg, kv_seg, q_anc, kv_node):
         B, Qb, Hl, D = q.shape
-        if head_split is not None:
+        if padded:
+            # this device's heads of the padded Hp, each with its kv head
+            Hl = Hp // mesh.size(head_split)
+            first = mesh.get_coordinate()[head_split] * Hl
+            heads = torch.arange(first, first + Hl, device=q.device)
+            q = q[:, :, heads.clamp(max=H - 1)]
+            k, v = (t[:, :, heads.clamp(max=H - 1) // G] for t in (k, v))
+        elif head_split is not None:
             n_kv = max(1, Hl // G)
             first = mesh.get_coordinate()[head_split] * Hl // G
             k, v = (t[:, :, first:first + n_kv] for t in (k, v))
@@ -146,10 +162,11 @@ def _attn_block_sharded(q, k, v, q_pos, kv_pos, q_seg, kv_seg, window,
                         kv_node, kv_split=(mesh, split) if split else None)
         return o.reshape(B, Qb, Hl, D)
 
-    return on_shards(core, mesh,
-                     (q, k, v, q_pos, kv_pos, q_seg, kv_seg, q_anc, kv_node),
-                     (qp, kp, kp, q_row, kv_row, q_row, kv_row, q_row,
-                      kv_row), qp)
+    o = on_shards(core, mesh,
+                  (q, k, v, q_pos, kv_pos, q_seg, kv_seg, q_anc, kv_node),
+                  (qp, kp, kp, q_row, kv_row, q_row, kv_row, q_row, kv_row),
+                  op)
+    return o[:, :, :H] if Hp != H else o
 
 
 def attention(q, k, v, *, q_positions, kv_positions, q_segments=None,

@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import is_dtensor, row_gather
+from repro_torch.distributed.sharding import (constrain, is_dtensor,
+                                              row_gather)
 
 
 def capacity(n_tokens: int, n_experts: int, top_k: int, cf: float) -> int:
@@ -61,19 +62,39 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int, cf: float):
     slot_tok = slot_tok[: E * C].view(E, C)
     slot_valid = slot_valid[: E * C].view(E, C)
 
+    at = torch.where(keep, pos, 0)
+    cap = None
     if is_dtensor(x):
-        # the token rows stay split over the batch's mesh dims
+        # under a rule table the (E, C) grid is laid out by one of two
+        # plans, whichever moves fewer bytes: many slots (training,
+        # prefill) split the capacity as the table lays it out and gather
+        # the experts' weights for their use (3 E d ff elements); few
+        # (decode) leave the weights where they are, split the grid's d as
+        # theirs and sum the partial products (twice 2 E C ff).  The
+        # gathers of dispatch and combine take their own cheaper layouts.
+        stationary = 4 * C * x.element_size() < 3 * d * w_gate.element_size()
+        cap = None if stationary else "exp_cap"
+        slot_tok, slot_valid = (constrain(a, "experts", cap)
+                                for a in (slot_tok, slot_valid))
+        flat_e, at = (constrain(a, "batch") for a in (flat_e, at))
         xin = row_gather(x, slot_tok)
+        if stationary:
+            xin = constrain(xin, "experts", None, "exp_embed")
+        else:
+            w_gate, w_up = (constrain(w, "experts", None, "mlp")
+                            for w in (w_gate, w_up))
+            w_down = constrain(w_down, "experts", "mlp", None)
     else:
         xin = x[slot_tok]
     xin = xin * slot_valid[..., None]  # (E, C, d)
-    h = F.silu(torch.bmm(xin, w_gate)) * torch.bmm(xin, w_up)
+    g, u = torch.bmm(xin, w_gate), torch.bmm(xin, w_up)
+    if is_dtensor(g):
+        g, u = (constrain(a, "experts", cap, "mlp") for a in (g, u))
+    h = F.silu(g) * u
     y = torch.bmm(h, w_down)  # (E, C, d)
 
     # combine: each (token, choice) reads its expert's output slot
-    at = torch.where(keep, pos, 0)
     if is_dtensor(y):
-        # the expert grid stays split where it is (experts, slots)
         yk = row_gather(y, flat_e, at)
     else:
         yk = y[flat_e, at]  # (T*k, d)

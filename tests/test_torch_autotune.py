@@ -110,6 +110,21 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+def test_no_device_means_the_card(monkeypatch):
+    """With no device given the tuner, its keys and its lookup use the
+    card; on a host without one they raise, as the port's entry points
+    do, and never fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    geom = dict(H=4, Kh=2, D=16, gamma_max=2, block_size=8)
+    for call in (lambda: at.backend(),
+                 lambda: at.tune_key("verify", **geom),
+                 lambda: at.get_config("decode", **geom),
+                 lambda: at.autotune("verify", **geom)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert at.backend("cpu") == "cpu"
+
+
 @pytest.mark.parametrize("kind", ["verify", "decode"])
 def test_cpu_autotune_round_trip(tmp_path, kind, one_thread):
     """On the CPU every candidate runs the plain version; the winner and

@@ -2,11 +2,16 @@
 ``on_shards``, ``row_gather`` and pointwise strategies, as the dry-run's
 cells lay them out) against the plain ops on the full tensors, on a
 spawned 4-rank ``gloo`` group over a (2, 2) ``data, model`` mesh: the
-attention core with batch and kv heads, or the cache sequence, split; the
-vocab-sharded embedding and its gradient; the MoE gathers and the
-last-token gather with the batch on both mesh dims; xLSTM's blocks and
-logsigmoid; Mamba2; the prefix concatenation.  One spawn for all of
-them (each rank pays torch's import)."""
+attention core with batch and kv heads, or the cache sequence, split, and
+with query heads that divide neither the model dim nor whole groups
+(padded, on a (1, 4) mesh; uneven groups), forward and gradients; the
+vocab-sharded embedding and its gradient; the MoE with the batch on both
+mesh dims, and under the training table in each gather layout (values,
+the tokens' and a weight's gradients); ``row_gather`` in every layout of
+a token table and an expert grid (split or partial sums), forward and
+gradient; the last-token gather; xLSTM's blocks and logsigmoid; Mamba2;
+the prefix concatenation.  One spawn for all of them (each rank pays
+torch's import)."""
 
 import multiprocessing as mp
 
@@ -18,6 +23,19 @@ from torch_dist import sharded_ops_rank
 CASES = ["attention kv heads", "attention cache seq",
          "attention query heads", "embedding",
          "embedding grad", "moe out", "moe aux", "moe z", "moe grad",
+         *(f"moe {plan} [{how}] {what}"
+           for plan in ("capacity", "stationary")
+           for how in ("local", "gather")
+           for what in ("out", "x grad", "w_gate grad")),
+         *(f"row_gather {name} {g} {what}"
+           for name, layouts in (("tokens", [(), (0,), (1,), (0, 1)]),
+                                 ("grid", [(), (0,), (1,), (0, 1)]),
+                                 ("partial grid", [(), (0,)]),
+                                 ("split d grid", [(), (0,)]))
+           for g in layouts for what in ("out", "grad")),
+         *(f"attention {name} {what}"
+           for name in ("padded", "uneven groups")
+           for what in ("out", "q grad", "k grad", "v grad")),
          "last rows", "logsigmoid", "logsigmoid grad", "mlstm out",
          "mlstm state 0", "mlstm state 1", "slstm out", "slstm state 0",
          "slstm state 1", "slstm state 2", "slstm state 3", "mamba2 out",

@@ -110,15 +110,17 @@ def _full(x):
 def sharded_ops_rank(rank, path, out):
     """One rank of a spawned 4-rank ``gloo`` group (a file store at
     ``path``) on a (2, 2) ``data, model`` mesh: each op the models run
-    over shards (attention core, vocab-sharded embedding, the MoE gathers,
-    the last-token gather, xLSTM, Mamba2, the prefix concatenation) on
+    over shards (attention core, vocab-sharded embedding, the MoE and
+    ``row_gather`` in each of its layouts, the last-token gather, xLSTM,
+    Mamba2, the prefix concatenation) on
     DTensors laid out as in the dry-run's cells, beside the plain op on
     the full tensors; rank 0 puts {case: (sharded, plain)} (numpy) on
     ``out``."""
     import dataclasses
 
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.configs import registry
@@ -203,6 +205,112 @@ def sharded_ops_rank(rank, path, out):
         for i, n in enumerate(("moe out", "moe aux", "moe z")):
             keep(n, o[i], want[i])
         keep("moe grad", xd.grad, xs.grad)
+        # the MoE under the training table in each plan of its grid (d 6:
+        # capacity split, weights gathered; d 176: weights in place, the
+        # grid's d split as theirs), its gathers in each layout (every
+        # split mesh dim looked up in place, or every one gathered):
+        # values and the gradients of the tokens and a weight
+        real = sharding.lookup_bytes
+        for plan, dm in (("capacity", d), ("stationary", 176)):
+            xm, rm = t((Tn, dm), 7), t((dm, E), 8)
+            wm = [t((E, dm, ff), 9), t((E, dm, ff), 10), t((E, ff, dm), 11)]
+            xs = xm.clone().requires_grad_(True)
+            wgs = wm[0].clone().requires_grad_(True)
+            want = moe.moe_ffn(xs, rm, wgs, *wm[1:], top_k=2, cf=1.0)
+            want[0].pow(2).sum().backward()
+            for how, pick in (("local", lambda g: len(g)),
+                              ("gather", lambda g: -len(g))):
+                sharding.lookup_bytes = (lambda *a, pick=pick: pick(a[7]))
+                try:
+                    with sharding.use_rules(mesh, train), \
+                            implicit_replication():
+                        xd = distribute_tensor(xm, mesh,
+                                               (S0, R)).requires_grad_()
+                        wd_ = [distribute_tensor(w, mesh, p).requires_grad_()
+                               for w, p in zip(wm, ((Shard(1), S0),
+                                                    (Shard(1), S0),
+                                                    (Shard(2), S0)))]
+                        o = moe.moe_ffn(xd, rm, *wd_, top_k=2, cf=1.0)
+                        o[0].pow(2).sum().backward()
+                finally:
+                    sharding.lookup_bytes = real
+                keep(f"moe {plan} [{how}] out", o[0], want[0])
+                keep(f"moe {plan} [{how}] x grad", xd.grad, xs.grad)
+                keep(f"moe {plan} [{how}] w_gate grad", wd_[0].grad,
+                     wgs.grad)
+        # row_gather itself, forward and gradient, in every layout: a token
+        # table with its rows on both mesh dims, ids on data; an expert grid
+        # (E, C, d) with the experts on model and the slots on data, or its
+        # slots or its d on data and partial sums over model, read by
+        # (expert, slot) ids on data
+        rg = np.random.default_rng(16)
+        tok = t((16, 6), 17)
+        tok_ids = torch.from_numpy(rg.integers(0, 16, (4, 5)))
+        grid = t((4, 8, 6), 18)
+        ge = torch.from_numpy(rg.integers(0, 4, (12,)))
+        gs = torch.from_numpy(rg.integers(0, 8, (12,)))
+        for name, full, place, ids in (
+                ("tokens", tok, (S0, S0), (tok_ids,)),
+                ("grid", grid, (Shard(1), S0), (ge, gs)),
+                ("partial grid", grid, (Shard(1), Partial()), (ge, gs)),
+                ("split d grid", grid, (Shard(2), Partial()), (ge, gs))):
+            split = [m for m, p in enumerate(place) if p.is_shard()]
+            w = t(tuple(ids[0].shape) + tuple(full.shape[len(ids):]), 19)
+            tab = full.clone().requires_grad_(True)
+            (tab[ids] * w).sum().backward()
+            for g in ((), (0,), (1,), (0, 1)):
+                if not set(g) <= set(split):
+                    continue
+                if place[1].is_partial():
+                    # the model ranks hold a quarter and three quarters
+                    data, model = mesh.get_coordinate()
+                    local = full.chunk(2, place[0].dim)[data] * (
+                        0.25 + 0.5 * model)
+                    td = DTensor.from_local(local, mesh, place,
+                                            run_check=False)
+                    td = td.detach().requires_grad_()
+                else:
+                    td = distribute_tensor(full, mesh, place).requires_grad_()
+                # the layout that gathers the table over g, forced
+                sharding.lookup_bytes = (lambda *a, g=g: a[7] != g)
+                try:
+                    with implicit_replication():
+                        idd = [distribute_tensor(i, mesh, (S0, R))
+                               for i in ids]
+                        o = sharding.row_gather(td, *idd)
+                        (o * distribute_tensor(w, mesh, (S0, R))
+                         ).sum().backward()
+                finally:
+                    sharding.lookup_bytes = real
+                keep(f"row_gather {name} {g} out", o, full[ids])
+                keep(f"row_gather {name} {g} grad", td.grad, tab.grad)
+        # attention whose query heads divide neither the model dim nor
+        # whole groups, forward and gradients, on a (1, 4) mesh: 6 query
+        # heads over 2 kv heads (padded to 8, two a device, one device's
+        # heads reading both kv heads), and 6 over 3 (groups of 2, three
+        # heads a device over a model dim of 2 on the (2, 2) mesh)
+        wide = init_device_mesh("cpu", (1, 4),
+                                mesh_dim_names=("data", "model"))
+        for name, m_, H, Kh in (("padded", wide, 6, 2),
+                                ("uneven groups", mesh, 6, 3)):
+            B, Sq, D = 2, 6, 8
+            q, k, v = (t((B, Sq, H, D), 20), t((B, Sq, Kh, D), 21),
+                       t((B, Sq, Kh, D), 22))
+            pos = torch.arange(Sq, dtype=torch.int32).expand(B, Sq)
+            w = t((B, Sq, H, D), 23)
+            leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+            want = layers.attention(*leaves, q_positions=pos,
+                                    kv_positions=pos, q_block=4)
+            (want * w).sum().backward()
+            with sharding.use_rules(m_, train), implicit_replication():
+                dd = [distribute_tensor(a, m_, (S0, R)).requires_grad_()
+                      for a in (q, k, v)]
+                o = layers.attention(*dd, q_positions=pos, kv_positions=pos,
+                                     q_block=4)
+                (o * distribute_tensor(w, m_, (S0, R))).sum().backward()
+            keep(f"attention {name} out", o, want)
+            for n_, a, b in zip("qkv", dd, leaves):
+                keep(f"attention {name} {n_} grad", a.grad, b.grad)
         # the last-token gather, batch on both mesh dims
         h, idx = t((8, 5, 6), 12), torch.tensor([4, 0, 2, 3, 1, 4, 0, 2])
         with implicit_replication():
