@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import attention
+from repro_torch.serving import trace
 
 # Tree speculation encodes each query's root-to-node path as a bitmask in
 # one int32, so the node budget per request is the mask width.
@@ -126,6 +127,11 @@ def packed_gather(cache_entry: dict, gather_b, gather_s, valid):
     return k, v, pos, seg
 
 
+def _to_device(a, device) -> torch.Tensor:
+    with trace.sync():
+        return torch.as_tensor(a, device=device)
+
+
 def make_attn_override(gather_b, gather_s, valid, q_rows):
     """Returns an attention override for ``transformer._attn_block`` that
     implements packed verification: attend q over [packed KV ; new KV] and
@@ -145,11 +151,11 @@ def make_attn_override(gather_b, gather_s, valid, q_rows):
     def override(q, k_new, v_new, positions, segments, kv_cache, cfg, opts):
         # q, k_new, v_new: (1, Tq, H/Kh, hd); positions/segments: (1, Tq)
         if "plan" not in dev:
-            gb, gs, ok, qr = (torch.as_tensor(a, device=q.device)
-                              for a in host)
+            gb, gs, ok, qr = (_to_device(a, q.device) for a in host)
             wpos = positions[0].long()
-            inside = torch.nonzero((wpos >= 0)
-                                   & (wpos < kv_cache["k"].shape[1]))[:, 0]
+            with trace.sync():
+                inside = torch.nonzero(
+                    (wpos >= 0) & (wpos < kv_cache["k"].shape[1]))[:, 0]
             dev["plan"] = (gb, gs, ok, qr[inside], wpos[inside], inside)
         gb, gs, ok, rows, slots, src = dev["plan"]
         pk, pv, ppos, pseg = packed_gather(kv_cache, gb, gs, ok)

@@ -27,6 +27,7 @@ import torch
 from repro_torch.models import config as C
 from repro_torch.models import transformer as T
 from repro_torch.serving import paged
+from repro_torch.serving import trace
 
 
 @dataclasses.dataclass
@@ -175,8 +176,9 @@ def draft_tree(ssm: Bundle, cache, last_tokens, lengths, gamma: int, ranks,
         best = torch.argmax(lg, -1, keepdim=True).to(torch.int32)
         if g == 0 and kmax > 1:
             order = torch.sort(lg, dim=-1, descending=True, stable=True)[1]
-            rk = torch.as_tensor(ranks_np, dtype=torch.long,
-                                 device=lg.device)[:, None]
+            with trace.sync():
+                rk = torch.as_tensor(ranks_np, dtype=torch.long,
+                                     device=lg.device)[:, None]
             ranked = torch.gather(order[:, :kmax], 1, rk).to(torch.int32)
             # rank 0 keeps argmax's tie-breaking (== linear draft exactly)
             tok = torch.where(rk == 0, best, ranked)
@@ -254,8 +256,10 @@ def invalidate_slots(cache, new_lengths, upper):
     """Mark dense attention-cache slots with new_len <= pos < upper as
     empty (seg = -1), in place.  cache: ``transformer.init_cache`` dict."""
     pos, seg = cache["pos"], cache["seg"]            # (L, B, S)
-    nl = new_lengths.to(pos.device)[None, :, None]
-    up = upper.to(pos.device)[None, :, None]
+    with trace.sync():
+        nl = new_lengths.to(pos.device)[None, :, None]
+    with trace.sync():
+        up = upper.to(pos.device)[None, :, None]
     seg.masked_fill_((pos >= nl) & (pos < up), -1)
     return cache
 

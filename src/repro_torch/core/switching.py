@@ -19,6 +19,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.spec_decode import invalidate_slots
+from repro_torch.serving import trace
+
+
+def _length(n: int, device) -> torch.Tensor:
+    with trace.sync():
+        return torch.tensor([n], dtype=torch.int32, device=device)
 
 
 @dataclasses.dataclass
@@ -50,7 +56,8 @@ class SwitchManager:
         pb = max(align, int(math.ceil(length / align) * align))
         row = np.zeros((1, pb), np.int32)
         row[0, :length] = np.asarray(tokens[:length], np.int32)
-        return torch.as_tensor(row, device=device)
+        with trace.sync():
+            return torch.as_tensor(row, device=device)
 
     def precompute(self, request_id: int, dst: int, tokens, length: int,
                    max_len: int):
@@ -59,7 +66,7 @@ class SwitchManager:
         pools, with a gamma+1 growth margin)."""
         b = self.ssms[dst]
         toks = self._padded(tokens, length, b.device)
-        lengths = torch.tensor([length], dtype=torch.int32, device=b.device)
+        lengths = _length(length, b.device)
         _, cache = b.prefill(toks, lengths, max_len)
         self.pre[request_id] = PrecomputedKV(
             ssm_idx=dst, upto_length=length, cache=cache, lengths=lengths,
@@ -83,8 +90,7 @@ class SwitchManager:
             # width; over-written garbage slots invalidated afterwards)
             toks = self._padded(tokens[pre.upto_length:length], delta,
                                 b.device, align=8)
-            lengths = torch.tensor([pre.upto_length], dtype=torch.int32,
-                                   device=b.device)
+            lengths = _length(pre.upto_length, b.device)
             _, cache = b.decode(pre.cache, toks, lengths)
             cache = invalidate_slots(
                 cache, torch.tensor([length], dtype=torch.int32),
@@ -95,7 +101,7 @@ class SwitchManager:
         # miss: full synchronous recompute
         self.misses += 1
         toks = self._padded(tokens, length, b.device)
-        lengths = torch.tensor([length], dtype=torch.int32, device=b.device)
+        lengths = _length(length, b.device)
         _, cache = b.prefill(toks, lengths, max_len)
         self.recompute_tokens += length
         return cache, length

@@ -47,6 +47,7 @@ from repro_torch.models import params as pp
 from repro_torch.models.layers import (attention, embed, rms_norm, rope,
                                        softmax_cross_entropy, swiglu)
 from repro_torch.models.params import P
+from repro_torch.serving import trace
 
 ATTN_KINDS = (C.ATTN, C.MOE, C.SHARED_ATTN)
 ATTN_LEAVES = ("k", "v", "pos", "seg", "k_scale", "v_scale")
@@ -336,7 +337,8 @@ def write_index(write_idx, S: int, in_range: bool = False):
         return (torch.div(src, T, rounding_mode="floor"),
                 write_idx.reshape(-1).long(), src)
     ok = (write_idx >= 0) & (write_idx < S)
-    src = torch.nonzero(ok.reshape(-1)).squeeze(1)
+    with trace.sync():
+        src = torch.nonzero(ok.reshape(-1)).squeeze(1)
     rows = torch.div(src, T, rounding_mode="floor")
     return rows, write_idx.reshape(-1)[src].long(), src
 

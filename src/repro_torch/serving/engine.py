@@ -60,6 +60,7 @@ from repro_torch.core.switching import SwitchManager
 from repro_torch.data.workloads import Request
 from repro_torch.kernels import autotune, quant
 from repro_torch.models import transformer as T
+from repro_torch.serving import trace
 from repro_torch.serving.paged import paged_compatible
 from repro_torch.serving.pool import DenseCachePool, PagedCachePool
 from repro_torch.serving.scheduler import ContinuousScheduler, SchedulerConfig
@@ -72,7 +73,8 @@ def _bucket(n: int, align: int = 16) -> int:
 
 
 def _i32(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x, np.int32), device=device)
+    with trace.sync():
+        return torch.as_tensor(np.asarray(x, np.int32), device=device)
 
 
 def _i64(x) -> torch.Tensor:
@@ -337,6 +339,7 @@ class SpinEngine:
         self.tree_adoptions = 0            # slots won by a non-main branch
         self.prefill_tokens_total = 0
         self.slot_log: List[dict] = []
+        self.tracer = trace.Tracer()       # off until a caller turns it on
         self.straggler_redispatches = 0
         self._accept_by_req: Dict[int, List[float]] = {}
         self._prefill_tokens_pending = 0
@@ -436,23 +439,31 @@ class SpinEngine:
                     f"request {r.rid} needs up to {need} KV slots "
                     f"(prompt {r.prompt_len} + max_new {r.max_new} + "
                     f"gamma_max+1) > max_len={self.max_len}")
-        self.scheduler.submit(reqs)
-        self._schedule()
+        with self.tracer.span("submit"):
+            for r in reqs:
+                self.tracer.event("queued", r.rid)
+            self.scheduler.submit(reqs)
+            self._schedule()
 
     def _schedule(self, grant_prefill: bool = False):
         """Apply this instant's scheduler decision: preemptions, then
         admissions, then prefill chunks (``grant_prefill`` only at the start
         of a step, so the chunk budget is spent once per slot)."""
-        dec = self.scheduler.plan(self.sim_time,
-                                  grant_prefill=grant_prefill)
-        for r in dec.preempt:
-            self._preempt(r)
-        for r in dec.admit:
-            if r.first_token_time is None:
-                self._unstamped.add(r.rid)
-            self._begin_admit(r)
-        for r, n in dec.prefill:
-            self._prefill_chunk(r, n)
+        tr = self.tracer
+        with tr.span("schedule"):
+            dec = self.scheduler.plan(self.sim_time,
+                                      grant_prefill=grant_prefill)
+            for r in dec.preempt:
+                self._preempt(r)
+            for r in dec.admit:
+                if r.first_token_time is None:
+                    self._unstamped.add(r.rid)
+                with tr.span("admit", r.rid):
+                    tr.event("admitted", r.rid)
+                    self._begin_admit(r)
+            for r, n in dec.prefill:
+                with tr.span("admit", r.rid):
+                    self._prefill_chunk(r, n)
 
     @staticmethod
     def _context_tokens(r: Request) -> np.ndarray:
@@ -479,9 +490,12 @@ class SpinEngine:
         # paged: a cache of just the prompt's blocks; dense: a full row
         plen = (self.llm_pool.prefill_len(row.shape[1]) if self.paged
                 else self.max_len)
-        logits, cache = self.llm.prefill(_i32(row, dev), _i32([L], dev), plen)
+        with self.tracer.span("admit.prefill"):
+            logits, cache = self.llm.prefill(_i32(row, dev), _i32([L], dev),
+                                             plen)
         last = self._first_token(r, logits, L - 1)
-        self.llm_pool.insert(r.rid, cache, L, last)
+        with self.tracer.span("admit.insert"):
+            self.llm_pool.insert(r.rid, cache, L, last)
         self._account_prefill(0, L)
         self.scheduler.mark_admitted(r, self.sim_time)
 
@@ -491,7 +505,8 @@ class SpinEngine:
         if r.emitted:
             return int(r.emitted[-1])
         V = self.llm.cfg.vocab_size
-        last = int(torch.argmax(logits[0, idx, :V].float()).item())
+        with trace.sync():
+            last = int(torch.argmax(logits[0, idx, :V].float()).item())
         r.emitted = [last]
         return last
 
@@ -517,18 +532,19 @@ class SpinEngine:
         segs = np.full((1, Tb), -1, np.int32)
         segs[0, :n] = 0
         dev = self.llm.device
-        if self.paged:
-            self.llm_pool.ensure(rid, pos + n)
-            bt = self.llm_pool.row_table(rid)
-            logits, cache = self.llm.append_paged(
-                self.llm_pool.cache, _i32(toks, dev), _i32([pos], dev),
-                _i32(segs, dev), bt, self.fused_llm_decode)
-            self.llm_pool.cache = cache
-        else:
-            # the row view is written in place by the append
-            logits, _ = self.llm.append(
-                self.llm_pool.row_cache(rid), _i32(toks, dev),
-                _i32([pos], dev), _i32(segs, dev))
+        with self.tracer.span("admit.prefill"):
+            if self.paged:
+                self.llm_pool.ensure(rid, pos + n)
+                bt = self.llm_pool.row_table(rid)
+                logits, cache = self.llm.append_paged(
+                    self.llm_pool.cache, _i32(toks, dev), _i32([pos], dev),
+                    _i32(segs, dev), bt, self.fused_llm_decode)
+                self.llm_pool.cache = cache
+            else:
+                # the row view is written in place by the append
+                logits, _ = self.llm.append(
+                    self.llm_pool.row_cache(rid), _i32(toks, dev),
+                    _i32([pos], dev), _i32(segs, dev))
         r.prefill_pos = pos + n
         row = self.llm_pool.row_of[rid]
         self.llm_pool.lengths[row] = r.prefill_pos
@@ -551,6 +567,7 @@ class SpinEngine:
             self.selector.retire(rid)
         self.gamma_ctl.retire(rid)
         self.scheduler.mark_preempted(r, self.sim_time)
+        self.tracer.event("queued", rid)
 
     def _finish(self, r: Request):
         r.done = True
@@ -607,7 +624,15 @@ class SpinEngine:
                 self._unstamped.discard(rid)
 
     def step(self) -> dict:
+        """One time slot; ``wall_time`` accumulates its host seconds."""
         t_wall = time.perf_counter()
+        with self.tracer.span("step"):
+            rec = self._slot()
+        self.wall_time += time.perf_counter() - t_wall
+        return rec
+
+    def _slot(self) -> dict:
+        tr = self.tracer
         self._schedule(grant_prefill=True)
         active = self._active()
         if not active:
@@ -624,7 +649,6 @@ class SpinEngine:
                 pre_t, pre_n = self._consume_prefill()
                 self.sim_time += pre_t
                 self._stamp_first_tokens()
-                self.wall_time += time.perf_counter() - t_wall
                 rec = {"tokens": 0, "sim_time": pre_t, "llm_idle": 0.0,
                        "micro_batches": [], "active": 0,
                        "running": len(self.scheduler.running),
@@ -634,42 +658,47 @@ class SpinEngine:
                 return rec
             return {"done": True}
         ids = [r.rid for r in active]
-        assign = self.selector.assign(ids)
 
-        # apply switches / placements
-        for rid, j in assign.items():
-            if j in self.failed_ssms:
-                j = min(set(range(len(self.ssms))) - self.failed_ssms)
-                assign[rid] = j
-            prev = self.assignment.get(rid)
-            if prev == j and self.ssm_pools[j].has(rid):
-                continue
-            if prev is not None and prev != j and \
-                    self.ssm_pools[prev].has(rid):
-                self.ssm_pools[prev].evict(rid)
-            if not self.ssm_pools[j].has(rid):
-                self._place_on_ssm(rid, j, assign)
-            self.assignment[rid] = j
+        # assign, then apply switches / placements
+        with tr.span("select"):
+            assign = self.selector.assign(ids)
+            for rid, j in assign.items():
+                if j in self.failed_ssms:
+                    j = min(set(range(len(self.ssms))) - self.failed_ssms)
+                    assign[rid] = j
+                prev = self.assignment.get(rid)
+                if prev == j and self.ssm_pools[j].has(rid):
+                    continue
+                if prev is not None and prev != j and \
+                        self.ssm_pools[prev].has(rid):
+                    self.ssm_pools[prev].evict(rid)
+                if not self.ssm_pools[j].has(rid):
+                    with tr.span("place", rid):
+                        self._place_on_ssm(rid, j, assign)
+                self.assignment[rid] = j
 
         # per-request speculation depths for this slot
-        slo_slack = None
-        if self.slo_aware:
-            slo_slack = {r.rid: r.next_deadline() - self.sim_time
-                         for r in active if r.slo is not None} or None
-        depths = self.gamma_ctl.grant(
-            ids, assign,
-            token_budget=self.ecfg.token_budget if self.chunked else None,
-            reserved_tokens=self.scheduler.last_prefill_granted,
-            slo_slack=slo_slack)
-        self.scheduler.set_decode_depths(
-            {rid: k + self._beff(k) - 1 for rid, k in depths.items()}
-            if self.tree else depths)
-        if self.paged:
-            # append-a-block growth: cover context + this slot's granted
-            # speculation window (k_i + 1) before decode/verify writes land
-            self.llm_pool.ensure_rows({
-                r.rid: int(self.llm_pool.lengths[self.llm_pool.row_of[r.rid]])
-                + depths[r.rid] + 1 for r in active})
+        with tr.span("grant"):
+            slo_slack = None
+            if self.slo_aware:
+                slo_slack = {r.rid: r.next_deadline() - self.sim_time
+                             for r in active if r.slo is not None} or None
+            depths = self.gamma_ctl.grant(
+                ids, assign,
+                token_budget=self.ecfg.token_budget if self.chunked else None,
+                reserved_tokens=self.scheduler.last_prefill_granted,
+                slo_slack=slo_slack)
+            self.scheduler.set_decode_depths(
+                {rid: k + self._beff(k) - 1 for rid, k in depths.items()}
+                if self.tree else depths)
+            if self.paged:
+                # append-a-block growth: cover context + this slot's granted
+                # speculation window (k_i + 1) before decode/verify writes
+                # land
+                self.llm_pool.ensure_rows({
+                    r.rid: int(self.llm_pool.lengths[
+                        self.llm_pool.row_of[r.rid]]) + depths[r.rid] + 1
+                    for r in active})
 
         # draft on every SSM pool (static shapes at the pool's slot-max
         # depth; rows granted less contribute only their k_i-token prefix)
@@ -684,70 +713,76 @@ class SpinEngine:
                 per_ssm_depth.append(float(self.cost.gamma))
                 per_ssm_vextra.append(0.0)
                 continue
-            per_ssm_depth.append(float(np.mean([depths[r] for r in rids])))
-            per_ssm_vextra.append(float(np.mean(
-                [self._beff(depths[r]) - 1 for r in rids])))
-            width = max(depths[r] for r in rids)
-            if self.tree:
-                cand, branch_map = self._draft_pool_tree(
-                    j, width, depths, rids)
-                for rid in rids:
-                    drafts[rid] = [cand[row, :kk]
-                                   for row, kk in branch_map[rid]]
-            else:
-                cand = self._draft_pool(j, width, depths)
-                rows = pool.rows(rids)
-                for rid, row in zip(rids, rows):
-                    drafts[rid] = cand[row, :depths[rid]]
+            with tr.span("draft", j):
+                per_ssm_depth.append(float(np.mean([depths[r]
+                                                    for r in rids])))
+                per_ssm_vextra.append(float(np.mean(
+                    [self._beff(depths[r]) - 1 for r in rids])))
+                width = max(depths[r] for r in rids)
+                if self.tree:
+                    cand, branch_map = self._draft_pool_tree(
+                        j, width, depths, rids)
+                    for rid in rids:
+                        drafts[rid] = [cand[row, :kk]
+                                       for row, kk in branch_map[rid]]
+                else:
+                    cand = self._draft_pool(j, width, depths)
+                    rows = pool.rows(rids)
+                    for rid, row in zip(rids, rows):
+                        drafts[rid] = cand[row, :depths[rid]]
         self.total_drafted += sum(depths.values())
         self.verify_tokens_total += sum(
             depths[rid] + self._beff(depths[rid]) for rid in ids)
 
-        n_acc, out, out_len = self._verify(ids, drafts, depths)
+        with tr.span("verify"):
+            n_acc, out, out_len = self._verify(ids, drafts, depths)
 
         # simulated slot timeline (pipeline §V-B)
-        accept_rates = self._accept_rates_per_ssm(assign, ids, n_acc, depths)
-        kv_cells_per_req = self._kv_cells_per_ssm(assign, ids, depths)
-        vextra = per_ssm_vextra if self.tree else None
-        if self.ecfg.use_pipeline:
-            mb = self.ecfg.micro_batches or P.choose_micro_batches(
-                self.cost, per_ssm_batch, accept_rates,
-                kv_cells_per_req=kv_cells_per_req,
-                depth_per_req=per_ssm_depth,
-                verify_extra_per_req=vextra)[0]
-        else:
-            mb = [1] * len(self.ssms)
-        pre_t, pre_n = self._consume_prefill()
-        slot = self._simulate_slot(per_ssm_batch, mb, kv_cells_per_req,
-                                   prefill_time=pre_t,
-                                   depth_per_req=per_ssm_depth,
-                                   verify_extra_per_req=vextra)
+        with tr.span("cost_model"):
+            accept_rates = self._accept_rates_per_ssm(assign, ids, n_acc,
+                                                      depths)
+            kv_cells_per_req = self._kv_cells_per_ssm(assign, ids, depths)
+            vextra = per_ssm_vextra if self.tree else None
+            if self.ecfg.use_pipeline:
+                mb = self.ecfg.micro_batches or P.choose_micro_batches(
+                    self.cost, per_ssm_batch, accept_rates,
+                    kv_cells_per_req=kv_cells_per_req,
+                    depth_per_req=per_ssm_depth,
+                    verify_extra_per_req=vextra)[0]
+            else:
+                mb = [1] * len(self.ssms)
+            pre_t, pre_n = self._consume_prefill()
+            slot = self._simulate_slot(per_ssm_batch, mb, kv_cells_per_req,
+                                       prefill_time=pre_t,
+                                       depth_per_req=per_ssm_depth,
+                                       verify_extra_per_req=vextra)
 
         # commit tokens, update request state, observe goodput + acceptance
-        self.sim_time += slot.makespan
-        slot_tokens = 0
-        observe_accept = getattr(self.selector, "observe_accept", None)
-        for i, rid in enumerate(ids):
-            r = self.requests[rid]
-            k = int(out_len[i])
-            r.emitted.extend(int(x) for x in out[i, :k])
-            self._stamp_tokens(r)
-            slot_tokens += k
-            g = k / max(slot.makespan, 1e-9)
-            self.selector.observe(rid, assign[rid], g)
-            # per-token acceptance over positions actually tested
-            tested = min(depths[rid], int(n_acc[i]) + 1)
-            rate = float(n_acc[i]) / tested
-            if observe_accept is not None:
-                observe_accept(rid, assign[rid], rate)
-            self._accept_by_req.setdefault(rid, []).append(rate)
-            if len(r.emitted) - 1 >= r.max_new:
-                self._finish(r)
-        self.accepted_tokens += slot_tokens
-        self._stamp_first_tokens()
-        self.wall_time += time.perf_counter() - t_wall
+        with tr.span("commit"):
+            self.sim_time += slot.makespan
+            slot_tokens = 0
+            observe_accept = getattr(self.selector, "observe_accept", None)
+            for i, rid in enumerate(ids):
+                r = self.requests[rid]
+                k = int(out_len[i])
+                r.emitted.extend(int(x) for x in out[i, :k])
+                self._stamp_tokens(r)
+                slot_tokens += k
+                g = k / max(slot.makespan, 1e-9)
+                self.selector.observe(rid, assign[rid], g)
+                # per-token acceptance over positions actually tested
+                tested = min(depths[rid], int(n_acc[i]) + 1)
+                rate = float(n_acc[i]) / tested
+                if observe_accept is not None:
+                    observe_accept(rid, assign[rid], rate)
+                self._accept_by_req.setdefault(rid, []).append(rate)
+                if len(r.emitted) - 1 >= r.max_new:
+                    self._finish(r)
+            self.accepted_tokens += slot_tokens
+            self._stamp_first_tokens()
 
-        self._precompute_switches(ids)
+        with tr.span("precompute"):
+            self._precompute_switches(ids)
         self._schedule()
 
         rec = {"tokens": slot_tokens, "sim_time": slot.makespan,
@@ -776,19 +811,22 @@ class SpinEngine:
         tokens = np.concatenate([np.asarray(r.prompt),
                                  np.asarray(r.emitted[:-1], np.int64)])
         length = len(tokens)
-        cache, _ = self.switcher.switch(rid, j, tokens, length,
-                                        self._switch_width(j, length))
+        with self.tracer.span("place.prefill"):
+            cache, _ = self.switcher.switch(rid, j, tokens, length,
+                                            self._switch_width(j, length))
         pool = self.ssm_pools[j]
-        while not pool.can_admit(length):
-            victim = next((rr for rr in pool.row_of
-                           if current.get(rr) != j), None)
-            if victim is None:
-                raise RuntimeError(
-                    f"SSM {j} draft pool over-committed: all "
-                    f"{len(pool.row_of)} residents are assigned here this "
-                    f"slot — selector batch_limits[{j}] exceeds the pool")
-            pool.evict(victim)
-        pool.insert(rid, cache, length, r.emitted[-1])
+        with self.tracer.span("place.insert"):
+            while not pool.can_admit(length):
+                victim = next((rr for rr in pool.row_of
+                               if current.get(rr) != j), None)
+                if victim is None:
+                    raise RuntimeError(
+                        f"SSM {j} draft pool over-committed: all "
+                        f"{len(pool.row_of)} residents are assigned here "
+                        f"this slot — selector batch_limits[{j}] exceeds "
+                        f"the pool")
+                pool.evict(victim)
+            pool.insert(rid, cache, length, r.emitted[-1])
 
     def _precompute_switches(self, ids):
         if not hasattr(self.selector, "predicted_destination"):
@@ -813,24 +851,28 @@ class SpinEngine:
         b = self.ssms[j]
         pool = self.ssm_pools[j]
         if not self.paged:
-            cand, _, pool.cache = sd.draft(
-                b, pool.cache, _i32(pool.last_token, b.device)[:, None],
-                _i32(pool.lengths, b.device), width, self.gen)
+            with self.tracer.span("draft.forward"):
+                cand, _, pool.cache = sd.draft(
+                    b, pool.cache, _i32(pool.last_token, b.device)[:, None],
+                    _i32(pool.lengths, b.device), width, self.gen)
             pool.invalidate_rows([row for row in range(pool.capacity)
                                   if row not in pool.row_of.values()])
-            return cand.cpu().numpy()
+            with trace.sync():
+                return cand.cpu().numpy()
         # cover draft writes (ctx..ctx+k_i-1) and the catch-up hole fill
         # (ctx+1..ctx+k_i+1) before any decode lands
         pool.ensure_rows({
             rid: int(pool.lengths[row]) + depths.get(rid, width) + 2
             for rid, row in pool.row_of.items()})
-        bt, _ = pool.block_table_array()
-        cand, _, cache = sd.draft(
-            b, pool.cache, _i32(pool.last_token, b.device)[:, None],
-            _i32(pool.lengths, b.device), width, self.gen, block_tables=bt,
-            fused_cfg=self.fused_ssm_decode[j])
+        with self.tracer.span("draft.forward"):
+            bt, _ = pool.block_table_array()
+            cand, _, cache = sd.draft(
+                b, pool.cache, _i32(pool.last_token, b.device)[:, None],
+                _i32(pool.lengths, b.device), width, self.gen,
+                block_tables=bt, fused_cfg=self.fused_ssm_decode[j])
         pool.cache = cache
-        return cand.cpu().numpy()
+        with trace.sync():
+            return cand.cpu().numpy()
 
     # ----------------------------------------------------- tree helpers --
     @staticmethod
@@ -881,15 +923,18 @@ class SpinEngine:
         for rid in rids:
             for bi, (row, _) in enumerate(branch_map[rid]):
                 ranks[row] = bi
-        bt, _ = pool.block_table_array()
-        cand, cache = sd.draft_tree(
-            b, pool.cache, _i32(pool.last_token, b.device)[:, None],
-            _i32(pool.lengths, b.device), width, ranks, block_tables=bt,
-            fused_cfg=self.fused_ssm_decode[j])
+        with self.tracer.span("draft.forward"):
+            bt, _ = pool.block_table_array()
+            cand, cache = sd.draft_tree(
+                b, pool.cache, _i32(pool.last_token, b.device)[:, None],
+                _i32(pool.lengths, b.device), width, ranks, block_tables=bt,
+                fused_cfg=self.fused_ssm_decode[j])
         pool.cache = cache
         for brid in forked:
             pool.evict(brid)
-        return cand.cpu().numpy(), branch_map
+        with trace.sync():
+            cand = cand.cpu().numpy()
+        return cand, branch_map
 
     def _tree_block_maps(self, ids_np, owner_np, tree_rows, W: int):
         """Per-slot tree metadata for the packed pass: block owners of
@@ -983,98 +1028,109 @@ class SpinEngine:
         inp = np.concatenate(
             [np.asarray(pool.last_token, np.int32)[:, None], cand], axis=1)
 
-        if self.ecfg.use_packed_verify:
-            logits = self._verify_packed(inp, lens_np, W,
-                                         tree_rows=tree_rows)
-        elif self.paged:
-            bt, _ = pool.block_table_array()
-            logits, pool.cache = self.llm.decode_paged(
-                pool.cache, _i32(inp, dev), _i32(lens_np, dev), bt,
-                self.fused_llm_decode)
-        else:
-            logits, pool.cache = self.llm.decode(
-                pool.cache, _i32(inp, dev), _i32(lens_np, dev))
-        V = self.llm.cfg.vocab_size
-        greedy = torch.argmax(logits[..., :V].float(), dim=-1)
-        greedy = greedy.cpu().numpy().astype(np.int64)       # (N, W+1)
-        # per-row depth mask: positions at or beyond a row's grant can
-        # never match (they hold padding, not drafts)
-        in_depth = np.arange(W)[None] < k_row[:, None]
-        match = (greedy[:, :W] == cand) & in_depth
-        n_acc_all = np.cumprod(match.astype(np.int64), 1).sum(1)
-        idx = np.arange(W + 1)[None]
-        out_all = np.where(idx < n_acc_all[:, None],
-                           np.pad(cand, ((0, 0), (0, 1))), 0).astype(np.int64)
-        out_all[np.arange(N), n_acc_all] = greedy[np.arange(N), n_acc_all]
-
-        # tree: adopt the winning branch per request (longest accepted
-        # path; ties land on branch 0), evict the losers
-        winner_row = {rid: row for rid, row in zip(ids, rows)}
-        if self.tree:
-            for rid in ids:
-                best_j, best_row = 0, winner_row[rid]
-                for (jj, brid, brow) in fork_rows[rid]:
-                    if int(n_acc_all[brow]) > int(n_acc_all[best_row]):
-                        best_j, best_row = jj, brow
-                if best_j != 0:
-                    pool.evict(rid)
-                    pool.rename(self._brid(rid, best_j), rid)
-                    self.tree_adoptions += 1
-                for (jj, brid, brow) in fork_rows[rid]:
-                    if jj != best_j:
-                        pool.evict(brid)
-                winner_row[rid] = best_row
-
-        # rollback: keep the accepted prefix only (trim the tail in place)
-        if self.paged:
-            pool.invalidate_span(lens_np + 1 + n_acc_all, lens_np + W + 1,
-                                 W=W)
-        else:
-            sd.invalidate_slots(pool.cache, _i64(lens_np + 1 + n_acc_all),
-                                _i64(lens_np + W + 1))
-            pool.invalidate_rows([row for row in range(N)
-                                  if row not in pool.row_of.values()])
-        # prefilling rows take no part in this verify, but the full-pool
-        # forward wrote speculative KV at [len, len+W+1): scrub all of it
-        pre_rows = [pool.row_of[rid] for rid in self.scheduler.prefilling
-                    if rid in pool.row_of]
-        if pre_rows:
-            lo = np.zeros(N, np.int64)
-            hi = np.zeros(N, np.int64)
-            lens_now = np.asarray(pool.lengths, np.int64)
-            for row in pre_rows:
-                lo[row] = lens_now[row]
-                hi[row] = lens_now[row] + W + 1
-            if self.paged:
-                pool.invalidate_span(lo, hi, W=W + 1)
+        with self.tracer.span("verify.forward"):
+            if self.ecfg.use_packed_verify:
+                logits = self._verify_packed(inp, lens_np, W,
+                                             tree_rows=tree_rows)
+            elif self.paged:
+                bt, _ = pool.block_table_array()
+                logits, pool.cache = self.llm.decode_paged(
+                    pool.cache, _i32(inp, dev), _i32(lens_np, dev), bt,
+                    self.fused_llm_decode)
             else:
-                sd.invalidate_slots(pool.cache, _i64(lo), _i64(hi))
+                logits, pool.cache = self.llm.decode(
+                    pool.cache, _i32(inp, dev), _i32(lens_np, dev))
+            V = self.llm.cfg.vocab_size
+            greedy = torch.argmax(logits[..., :V].float(), dim=-1)
+            with trace.sync():
+                greedy = greedy.cpu().numpy().astype(np.int64)   # (N, W+1)
 
-        # per-SSM catch-up (fill the c_k hole) + rollback on draft pools
-        for j, spool in enumerate(self.ssm_pools):
-            if not spool.row_of:
-                continue
-            pl = np.asarray(spool.lengths, np.int64).copy()
-            outs_j = np.zeros((spool.capacity, W + 1), np.int32)
-            nacc_j = np.zeros(spool.capacity, np.int64)
-            for rid, row in spool.row_of.items():
-                lrow = pool.row_of.get(rid)
-                if lrow is None:
+        with self.tracer.span("verify.accept"):
+            # per-row depth mask: positions at or beyond a row's grant can
+            # never match (they hold padding, not drafts)
+            in_depth = np.arange(W)[None] < k_row[:, None]
+            match = (greedy[:, :W] == cand) & in_depth
+            n_acc_all = np.cumprod(match.astype(np.int64), 1).sum(1)
+            idx = np.arange(W + 1)[None]
+            out_all = np.where(idx < n_acc_all[:, None],
+                               np.pad(cand, ((0, 0), (0, 1))),
+                               0).astype(np.int64)
+            out_all[np.arange(N), n_acc_all] = greedy[np.arange(N),
+                                                      n_acc_all]
+
+            # tree: adopt the winning branch per request (longest accepted
+            # path; ties land on branch 0), evict the losers
+            winner_row = {rid: row for rid, row in zip(ids, rows)}
+            if self.tree:
+                for rid in ids:
+                    best_j, best_row = 0, winner_row[rid]
+                    for (jj, brid, brow) in fork_rows[rid]:
+                        if int(n_acc_all[brow]) > int(n_acc_all[best_row]):
+                            best_j, best_row = jj, brow
+                    if best_j != 0:
+                        pool.evict(rid)
+                        pool.rename(self._brid(rid, best_j), rid)
+                        self.tree_adoptions += 1
+                    for (jj, brid, brow) in fork_rows[rid]:
+                        if jj != best_j:
+                            pool.evict(brid)
+                    winner_row[rid] = best_row
+
+            # rollback: keep the accepted prefix only (trim the tail in
+            # place)
+            if self.paged:
+                pool.invalidate_span(lens_np + 1 + n_acc_all,
+                                     lens_np + W + 1, W=W)
+            else:
+                sd.invalidate_slots(pool.cache,
+                                    _i64(lens_np + 1 + n_acc_all),
+                                    _i64(lens_np + W + 1))
+                pool.invalidate_rows([row for row in range(N)
+                                      if row not in pool.row_of.values()])
+            # prefilling rows take no part in this verify, but the
+            # full-pool forward wrote speculative KV at [len, len+W+1):
+            # scrub all of it
+            pre_rows = [pool.row_of[rid]
+                        for rid in self.scheduler.prefilling
+                        if rid in pool.row_of]
+            if pre_rows:
+                lo = np.zeros(N, np.int64)
+                hi = np.zeros(N, np.int64)
+                lens_now = np.asarray(pool.lengths, np.int64)
+                for row in pre_rows:
+                    lo[row] = lens_now[row]
+                    hi[row] = lens_now[row] + W + 1
+                if self.paged:
+                    pool.invalidate_span(lo, hi, W=W + 1)
+                else:
+                    sd.invalidate_slots(pool.cache, _i64(lo), _i64(hi))
+
+        with self.tracer.span("verify.catchup"):
+            # per-SSM catch-up (fill the c_k hole) + rollback on draft pools
+            for j, spool in enumerate(self.ssm_pools):
+                if not spool.row_of:
                     continue
-                outs_j[row] = out_all[lrow]
-                nacc_j[row] = int(n_acc_all[lrow])
-            sdev = self.ssms[j].device
-            if self.paged:
-                bt, _ = spool.block_table_array()
-                _, spool.cache = self.ssms[j].decode_paged(
-                    spool.cache, _i32(outs_j, sdev), _i32(pl + 1, sdev), bt,
-                    self.fused_ssm_decode[j])
-                spool.invalidate_span(pl + 2 + nacc_j, pl + W + 3, W=W + 1)
-            else:
-                _, spool.cache = self.ssms[j].decode(
-                    spool.cache, _i32(outs_j, sdev), _i32(pl + 1, sdev))
-                sd.invalidate_slots(spool.cache, _i64(pl + 2 + nacc_j),
-                                    _i64(pl + W + 3))
+                pl = np.asarray(spool.lengths, np.int64).copy()
+                outs_j = np.zeros((spool.capacity, W + 1), np.int32)
+                nacc_j = np.zeros(spool.capacity, np.int64)
+                for rid, row in spool.row_of.items():
+                    lrow = pool.row_of.get(rid)
+                    if lrow is None:
+                        continue
+                    outs_j[row] = out_all[lrow]
+                    nacc_j[row] = int(n_acc_all[lrow])
+                sdev = self.ssms[j].device
+                if self.paged:
+                    bt, _ = spool.block_table_array()
+                    _, spool.cache = self.ssms[j].decode_paged(
+                        spool.cache, _i32(outs_j, sdev), _i32(pl + 1, sdev),
+                        bt, self.fused_ssm_decode[j])
+                    spool.invalidate_span(pl + 2 + nacc_j, pl + W + 3, W=W + 1)
+                else:
+                    _, spool.cache = self.ssms[j].decode(
+                        spool.cache, _i32(outs_j, sdev), _i32(pl + 1, sdev))
+                    sd.invalidate_slots(spool.cache, _i64(pl + 2 + nacc_j),
+                                        _i64(pl + W + 3))
 
         # update lengths / last tokens on pools
         n_acc = np.zeros(len(ids), np.int64)

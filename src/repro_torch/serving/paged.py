@@ -33,6 +33,7 @@ from repro_torch.kernels import ops, quant
 from repro_torch.models import config as C
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import attention
+from repro_torch.serving import trace
 
 
 def pool_dims(cache) -> Tuple[int, int]:
@@ -62,7 +63,8 @@ class _Writes:
     def get(self, positions):
         if self.dst is None:
             flat = self._make(positions).reshape(-1)
-            self.src = torch.nonzero(flat >= 0).squeeze(1)
+            with trace.sync():
+                self.src = torch.nonzero(flat >= 0).squeeze(1)
             self.dst = flat[self.src].long()
         return self.dst, self.src
 

@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.kernels import quant
 from repro_torch.models import transformer as T
+from repro_torch.serving import trace
 
 
 # ------------------------------------------------------------ dense layout --
@@ -206,7 +207,9 @@ class PagedCachePool:
         return np.array([self.row_of[r] for r in rids], np.int32)
 
     def _ids(self, ids) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        with trace.sync():
+            return torch.as_tensor(np.asarray(ids, np.int64),
+                                   device=self.device)
 
     # ---------------------------------------------------------- lifecycle --
     def _alloc(self, n: int) -> List[int]:
@@ -268,8 +271,9 @@ class PagedCachePool:
         append-chunk writes through the paged decode override."""
         row = self.row_of[rid]
         nb = min(self.blocks_per_row, _pow2(max(1, int(self._nb[row]))))
-        return torch.as_tensor(self._table[row:row + 1, :nb],
-                               device=self.device)
+        with trace.sync():
+            return torch.as_tensor(self._table[row:row + 1, :nb],
+                                   device=self.device)
 
     def ensure(self, rid: int, need_len: int):
         """Append blocks until the row covers ``need_len`` cells."""
@@ -302,7 +306,10 @@ class PagedCachePool:
             self._table[row, have:need] = ids
             self._nb[row] = need
             new_ids.extend(ids)
-        self.cache["seg"][:, self._ids(new_ids)] = -1
+        idx = self._ids(new_ids)
+        # PyTorch reports this fill as a synchronizing call
+        with trace.sync():
+            self.cache["seg"][:, idx] = -1
 
     def fork(self, rid: int, new_rid) -> int:
         """Copy-on-write fork: grant ``new_rid`` a row whose block table
@@ -388,7 +395,9 @@ class PagedCachePool:
         flat = (phys.astype(np.int64) * bs + p % bs)[ok]
         if flat.size:
             L = self.cache["seg"].shape[0]
-            self.cache["seg"].view(L, -1)[:, self._ids(flat)] = -1
+            idx = self._ids(flat)
+            with trace.sync():
+                self.cache["seg"].view(L, -1)[:, idx] = -1
 
     # ------------------------------------------------------------- views --
     def block_table_array(self) -> Tuple[torch.Tensor, int]:
@@ -396,8 +405,9 @@ class PagedCachePool:
         next power of two of the longest row's allocation."""
         nb_max = min(self.blocks_per_row,
                      _pow2(int(self._nb.max()) if len(self._nb) else 1))
-        return (torch.as_tensor(self._table[:, :nb_max], device=self.device),
-                nb_max)
+        with trace.sync():
+            return (torch.as_tensor(self._table[:, :nb_max],
+                                    device=self.device), nb_max)
 
     def live_blocks(self) -> Tuple[np.ndarray, np.ndarray]:
         """(block_ids, owner_rows) over all live rows, padded to a power-of
