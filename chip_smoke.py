@@ -22,7 +22,9 @@ script then exits non-zero without its last line.  Phases:
    = 1 and 6 over rows of 0 to 64 blocks and block sizes 8 and 32; for
    fused_paged_verify and paged_verify_attention block lists in no order,
    of 1, 17 and 64 entries, block sizes 8 and 32, and fused_paged_verify
-   at dbrx's GQA group 6; for decode_attention rows of 2048 to 8190 slots
+   at dbrx's GQA group 6, both at the benchmark cells' verify shapes
+   (``CELL_VERIFY``) and on the 4096-entry long-context list; for
+   decode_attention rows of 2048 to 8190 slots
    at B = 1 and 4, split over runs of tiles and merged; for
    paged_decode_attention the same long rows read through a block table,
    unequal int8 rows, block sizes 8 (fp8) and 64 (bf16) with rows ending
@@ -305,6 +307,9 @@ TUNE_KEYS = [("verify", (32, 32, 128), "bf16"),
 # entries with its padding), LLaMA-616M's draft step over rows of 32k
 # and 4k tokens
 LONG_VERIFY_LENS = [8000, 6500, 5000, 7000, 4500, 2500]
+# the benchmark cells' verify calls for the kernel checks: (model,
+# requests, query heads), 8 kv heads, D 128
+CELL_VERIFY = [("qwen2.5-14b", 128, 40), ("internlm2-20b", 64, 48)]
 LONG_DECODE_LENS = [32767, 4095]
 # the dry-run phase's cells (arch, shape, meshes), each in a process of
 # its own (its fake 512-rank group): qwen2-0.5b's decode on both
@@ -811,6 +816,20 @@ def kernel_check_cases(gen):
             todo.append(("fused_paged_decode", f"zoo D={D} draft T=1 {kv}",
                          cases.decode_inputs(gen, ZOO_LENS, 1, 4, 4, D, 16,
                                              kv)))
+    # #1 and #4 at the benchmark cells' verify shapes (Qwen2.5-14B: 128
+    # requests x 5 tokens, H 40, Kh 8; InternLM2-20B: 64 x 5, H 48, Kh 8;
+    # the chat mix's contexts, owners grouped by row as the pool lists
+    # them; one chunk) and on the long-context list (LONG_VERIFY_LENS, 4096
+    # entries; split), the same inputs for both
+    for tag, n, H in CELL_VERIFY:
+        ctx = torch.randint(8, 190, (n,), generator=gen).tolist()
+        a = cases.verify_inputs(gen, ctx, 4, H, 8, 128, 16, "bf16", False)
+        for name in ("fused_paged_verify", "paged_verify_attention"):
+            todo.append((name, f"{tag} cell bf16 linear", a))
+    a = cases.verify_inputs(gen, LONG_VERIFY_LENS, 4, 32, 32, 128, 16,
+                            "bf16", False)
+    for name in ("fused_paged_verify", "paged_verify_attention"):
+        todo.append((name, "llama-7b 4096 entries bf16 linear", a))
     return todo
 
 
@@ -847,7 +866,8 @@ def run_checks(todo, timer, report):
             f"{rec['ref_max']:.3g} tol={rec['tol']:.3g} ms={rec['ms']:.4f} "
             f"plain_ms={rec['plain_ms']:.4f} "
             f"library_ms={rec['library_ms']:.4f} "
-            f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) "
+            f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}, "
+            f"share {100 * rec['bound_ms'] / rec['ms']:.2f}%) "
             f"{'ok' if rec['ok'] else 'FAIL'}")
         report["checks"].append(dict(kernel=name, case=label,
                                      shape=shape_of(a), **rec))

@@ -2,27 +2,28 @@
 
 The fused kernels (``fused_verify.fused_paged_verify``, #1, and
 ``fused_decode.fused_paged_decode``, #2) take their launch shape from a plan
-at each call (``paged_attention.run_plan``, ``fused_decode.decode_plan``).
+at each call (``paged_attention.verify_plan``, ``fused_decode.decode_plan``).
 A :class:`FusedConfig` overrides the plan's choices; its fields keep the
 reference's names (``repro.kernels.autotune``) and map onto the knobs the
 CUDA kernels take:
 
 ======  ===============================  ================================
-field   #1 ``run_plan``                  #2 ``decode_plan``
+field   #1 ``verify_plan``               #2 ``decode_plan``
 ======  ===============================  ================================
-bq      query tokens per CTA             query tokens per CTA
-bk      least block entries a run        warps per team of the split
-        (a floor: see ``run_plan``)      layout (1, 2 or 4)
-depth   ``cp.async`` stages per team     stages per team (split layout)
+bq      no knob: nonzero raises (a CTA   query tokens per CTA
+        holds a segment's queries)
+bk      least list entries a chunk       warps per team of the split
+        keeps per query token (where     layout (1, 2 or 4)
+        a segment's entries split)
+depth   ``cp.async`` stages              stages per team (split layout)
 ======  ===============================  ================================
 
 0 in any field means the plan's own choice, so :data:`DEFAULT_CONFIG`
-(all 0) launches exactly what the plan alone launches.  #1's ``bk`` is a
-floor: a block list of more than ``MAX_RUNS`` x bk entries takes
-ceil(M / MAX_RUNS) a run, as the plan does, so every bk launches at every
-list length.  A config the kernel cannot launch raises at the call
-(``ValueError``); it is never clamped.  The plain versions (CPU tensors) ignore the config, as the
-reference's XLA path does.
+(all 0) launches exactly what the plan alone launches.  #1's ``bk``
+launches at every list length (``verify_plan``: chunks = M // (Tq bk), at
+most ``MAX_CHUNKS``).  A config the kernel cannot launch raises at the call
+(``ValueError``); it is never clamped.  The plain versions (CPU tensors)
+ignore the config, as the reference's XLA path does.
 
 The tuner benchmarks a small candidate grid (:func:`candidate_configs`) on
 the reference's synthetic pool shapes, or on calls the caller hands it (a
@@ -191,20 +192,30 @@ def _feasible(kind: str, cfg: FusedConfig, G: int, D: int,
     may offer), by the checks the plans make: rows a CTA, rows a warp,
     stages and their shared memory.  A decode config sets all three fields
     or none: the plan's query tile, and with it the layout, changes from
-    call to call.  (#1's ``bk`` is a floor that the plan raises for long
-    block lists, so it launches at every list length.)"""
+    call to call.  A verify config sets no ``bq`` and its stages fit at
+    the longest list a CTA keeps, on every path its pools may take (an
+    unquantized key's bf16 pools on the tensor cores, float32 ones on the
+    CUDA cores; ``kv_bytes`` 4 stands for both)."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import LIST_CAP, verify_plan
     if cfg == DEFAULT_CONFIG:
         return True
-    if kind == "decode" and not (cfg.bq and cfg.bk and cfg.depth):
+    if kind == "verify":
+        paths = {4: ((4, 4), (2, 2)), 2: ((2, 2),), 1: ((2, 1),)}[kv_bytes]
+        try:
+            for q_bytes, kv in paths:
+                verify_plan(LIST_CAP, G, 1, LIST_CAP, 16, D, q_bytes, kv, 1,
+                            cfg)
+        except ValueError:
+            return False
+        return True
+    if not (cfg.bq and cfg.bk and cfg.depth):
         return False
-    bq = cfg.bq or max(1, build.WARPS // G)
-    rows = bq * G
+    rows = cfg.bq * G
     if rows > build.MAX_ROWS:
         return False
     try:
-        build.tile_pipeline(rows, 1, D, kv_bytes, 1, 1,
-                            wpt=cfg.bk if kind == "decode" else 0,
+        build.tile_pipeline(rows, 1, D, kv_bytes, 1, 1, wpt=cfg.bk,
                             stages=cfg.depth)
     except ValueError:
         return False
@@ -216,9 +227,9 @@ def roofline_candidates(kind: str, block_size: int,
     """Extra grid points from the port's dry-run records (``--roofline
     --json``, default ``results/torch_dryrun_baseline.json``).  Memory-bound
     cells reward deeper ``cp.async`` pipelining; compute- or
-    collective-bound ones reward a wider query tile amortizing each
-    streamed tile over more rows.  Missing/empty file -> no extra
-    candidates."""
+    collective-bound ones a finer split of long verify lists (more CTAs
+    for the tensor cores) or, for decode, nothing new.  Missing/empty
+    file -> no extra candidates."""
     try:
         with open(path or ROOFLINE_PATH) as f:
             records = json.load(f)
@@ -236,7 +247,7 @@ def roofline_candidates(kind: str, block_size: int,
         out += ([FusedConfig(depth=d) for d in (3, 4)] if kind == "verify"
                 else [FusedConfig(bq=1, bk=4, depth=d) for d in (3, 4)])
     if ("compute" in doms or "collective" in doms) and kind == "verify":
-        out.append(FusedConfig(bq=16))
+        out.append(FusedConfig(bk=2))   # split long lists more finely
     return out
 
 
@@ -247,21 +258,18 @@ def candidate_configs(kind: str, block_size: int,
     group ``G``, head dim ``D`` and ``kv_bytes`` a K/V element, around the
     plan's own choice (:data:`DEFAULT_CONFIG` first):
 
-    * verify: half and twice the plan's query tile; runs of 256 and 512
-      slots; 1-3 stages; the wider tile with 256-slot runs;
+    * verify: chunks of 4 and 16 list entries a query token (finer and
+      coarser splits of long lists); 1 and 3 stages; the finer split with
+      3 stages;
     * decode: one or two query tokens a CTA, teams of 1, 2 or 4 warps,
       1, 2 or 4 stages (the plan's draft step is one token, one-warp
       teams, two stages);
 
     then the roofline-derived points.  Kept small: tuning runs kernels."""
     if kind == "verify":
-        plan_bq = max(1, 4 // G)
-        lo, hi = max(1, plan_bq // 2), plan_bq * 2
-        runs = [max(1, n // block_size) for n in (256, 512)]
-        grid = ([FusedConfig(bq=b) for b in (lo, hi)]
-                + [FusedConfig(bk=n) for n in runs]
-                + [FusedConfig(depth=d) for d in (1, 2, 3)]
-                + [FusedConfig(bq=hi, bk=runs[0])])
+        grid = ([FusedConfig(bk=n) for n in (4, 16)]
+                + [FusedConfig(depth=d) for d in (1, 3)]
+                + [FusedConfig(bk=4, depth=3)])
     elif kind == "decode":
         grid = [FusedConfig(bq=b, bk=w, depth=s)
                 for w, s in ((1, 2), (1, 1), (2, 2), (4, 1), (1, 4), (4, 2),

@@ -48,6 +48,10 @@ KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 
 # kernel launches per wrapper name; each wrapper adds one where it launches
 LAUNCHES: collections.Counter = collections.Counter()
+# calls of the packed verify (#1 fused_paged_verify, #4
+# paged_verify_attention) whose plan split a segment's entries into chunks,
+# so that the last chunk of a tile merges float32 partials
+VERIFY_SPLITS = 0
 # per-kernel build record: {"seconds": wall seconds, "ptxas": compiler notes}
 BUILD_LOG: Dict[str, dict] = {}
 _libs: Dict[str, ctypes.CDLL] = {}

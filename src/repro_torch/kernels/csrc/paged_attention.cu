@@ -31,9 +31,9 @@
 //   whatever the block size, and the last live run of a row merges.  As in
 //   the reference, an unallocated entry (< 0) of the live prefix reads
 //   block 0, and the slots past the length are never read.
-// - verify: split over runs of block entries, one launch, the last run of
-//   a query tile merging; verify_runs.cuh (shared with fused_verify.cu)
-//   holds the kernel and its design.
+// - verify: one CTA per (segment tile, kv head group, chunk), tensor
+//   cores for bf16 queries; verify_runs.cuh (shared with fused_verify.cu)
+//   holds the kernels and their design.
 #include "decode_runs.cuh"
 #include "verify_runs.cuh"
 
@@ -94,11 +94,13 @@ extern "C" int spin_paged_verify_attention(
     const int* block_ids, const int* block_owner, const int* block_node,
     const float* k_scale, const float* v_scale, float* pm, float* pl,
     float* pacc, int* counters, void* out, int Tq, int H, int Kh, int D,
-    int bs, int M, int BQ, int per_run, int runs, int wpt, int stages,
-    int q_dtype, int kv_dtype, float scale, void* stream) {
+    int bs, int M, int tokens, int span, int chunks, int cap, int mma,
+    int heads, int wpt, int stages, int q_dtype, int kv_dtype, float scale,
+    void* stream) {
   return spin::verify_runs(q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
                            q_pos, q_anc, block_ids, block_owner, block_node,
                            k_scale, v_scale, pm, pl, pacc, counters, out, Tq,
-                           H, Kh, D, bs, M, BQ, per_run, runs, wpt, stages,
-                           q_dtype, kv_dtype, scale, stream);
+                           H, Kh, D, bs, M, tokens, span, chunks, cap, mma,
+                           heads, wpt, stages, q_dtype, kv_dtype, scale,
+                           stream);
 }

@@ -1,5 +1,5 @@
 // The tile pipeline of the redesigned attention kernels (fused_decode.cu's
-// split layout, verify_runs.cuh's runs of block entries, decode_runs.cuh's
+// split layout, verify_runs.cuh's CUDA-core path, decode_runs.cuh's
 // runs of a decode row's tiles): K/V tiles of 32 slots streamed into
 // shared memory by cp.async, several in flight, and scored by teams of
 // warps that each own a share of the tiles.
@@ -237,25 +237,6 @@ struct TableMap {
     node = 0;
     slot = static_cast<long long>(id) * bs + (c - e * bs);
     return id >= 0;
-  }
-};
-
-// Slot c of a verify run: live entry c / bs of the run's compacted list.
-struct RunMap {
-  static constexpr bool kTags = true;
-  const int* ent;  // entry index in block_ids (for block_node)
-  const int* blk;  // physical block
-  const int* own;  // owning segment
-  int bs;
-  __device__ __forceinline__ bool operator()(int c, long long& slot,
-                                             int& owner,
-                                             long long& node) const {
-    const int e = c / bs;
-    const int s = c - e * bs;
-    owner = own[e];
-    slot = static_cast<long long>(blk[e]) * bs + s;
-    node = static_cast<long long>(ent[e]) * bs + s;
-    return true;
   }
 };
 

@@ -14,7 +14,14 @@ from repro_torch.kernels import autotune as at
 from repro_torch.kernels import build, fused_decode, fused_verify
 from repro_torch.kernels import paged_attention
 from repro_torch.kernels.fused_decode import decode_plan
-from repro_torch.kernels.paged_attention import run_plan
+from repro_torch.kernels.paged_attention import verify_plan
+
+
+def run_plan(Tq, G, Kh, M, bs, D, kv_bytes, sms, config=None):
+    """#1's plan with the queries of the pools' float type (float32 pools
+    take float32 queries, bf16 and int8/fp8 pools bf16 ones)."""
+    return verify_plan(Tq, G, Kh, M, bs, D, 4 if kv_bytes == 4 else 2,
+                       kv_bytes, sms, config)
 
 GEOM = dict(H=32, Kh=32, D=128, gamma_max=4, block_size=16)
 
@@ -218,14 +225,15 @@ def test_default_config_is_the_plan_decode(call):
 
 
 def test_overrides_reach_the_plans():
-    # verify: tokens a CTA, entries a run, stages; unset fields stay the plan's
-    base = run_plan(30, 1, 32, 16, 16, 128, 2, 132)
-    assert run_plan(30, 1, 32, 16, 16, 128, 2, 132,
-                    at.FusedConfig(bq=8))[0] == 8
-    got = run_plan(30, 1, 32, 16, 16, 128, 2, 132, at.FusedConfig(bk=4))
-    assert got[:3] == (base[0], 4, 4)
-    got = run_plan(30, 1, 32, 16, 16, 128, 2, 132, at.FusedConfig(depth=1))
-    assert got[4] == 1 and got[:4] == base[:4]
+    # verify: entries a chunk a token, stages; unset fields stay the plan's
+    base = run_plan(30, 1, 32, 960, 16, 128, 2, 132)
+    assert base.chunks == 960 // (30 * paged_attention.SPLIT_ENTRIES) == 4
+    got = run_plan(30, 1, 32, 960, 16, 128, 2, 132, at.FusedConfig(bk=4))
+    assert got.chunks == 8 and got.stages == base.stages
+    got = run_plan(30, 1, 32, 960, 16, 128, 2, 132, at.FusedConfig(depth=1))
+    assert got.stages == 1 and got[:7] == base[:7]
+    got = run_plan(30, 1, 32, 960, 16, 128, 4, 132, at.FusedConfig(depth=1))
+    assert got.stages == 1 and not got.mma
     # decode: a nonzero team size takes the split layout even at 4 rows
     assert decode_plan(1, 64, 1, 32, 8, 16, 128, 2, 132)[1] == 0
     assert decode_plan(1, 64, 1, 32, 8, 16, 128, 2, 132,
@@ -234,16 +242,21 @@ def test_overrides_reach_the_plans():
                        at.FusedConfig(bq=2, bk=2, depth=1)) == (2, 2, 1)
 
 
-def test_verify_entries_a_run_is_a_floor():
-    """#1's bk is the least entries a run: a list longer than MAX_RUNS x bk
-    takes ceil(M / MAX_RUNS) a run, as the plan's own choice does."""
-    runs_max = paged_attention.MAX_RUNS
+def test_verify_entries_a_chunk_launch_at_every_length():
+    """#1's bk is the least list entries a chunk keeps per query token:
+    chunks = M // (Tq bk), at least one and at most MAX_CHUNKS, and each
+    chunk's list ceil(M / chunks) entries up to LIST_CAP, at every list
+    length."""
+    cap = paged_attention.MAX_CHUNKS
     assert run_plan(30, 1, 32, 200, 16, 128, 2, 132,
-                    at.FusedConfig(bk=4))[1:3] == (7, 29)
-    assert run_plan(30, 1, 32, 16 * runs_max, 16, 128, 2, 132,
-                    at.FusedConfig(bk=16))[1:3] == (16, runs_max)
-    assert run_plan(30, 1, 32, 16 * runs_max + 1, 16, 128, 2, 132,
-                    at.FusedConfig(bk=16))[1:3] == (17, 31)
+                    at.FusedConfig(bk=4))[2:4] == (1, 200)
+    assert run_plan(30, 1, 32, 480, 16, 128, 2, 132,
+                    at.FusedConfig(bk=4))[2:4] == (4, 120)
+    assert run_plan(30, 1, 32, 1 << 15, 16, 128, 2, 132,
+                    at.FusedConfig(bk=1))[2:4] == (cap, 2048)
+    assert run_plan(30, 1, 32, 1 << 20, 16, 128, 2, 132,
+                    at.FusedConfig(bk=64))[2:4] == (
+                        cap, paged_attention.LIST_CAP)
 
 
 @pytest.mark.parametrize("kind,G,D,kv", [("verify", 1, 128, 2),
@@ -257,7 +270,8 @@ def test_every_candidate_plans_long_lists(tmp_path, kind, G, D, kv,
     """Every config the tuner may offer (the roofline's points too) plans a
     long-context call: a verify list of thousands of live blocks (an engine
     of 1k-context requests passes 512 and more), a decode row of as many
-    blocks; at most MAX_RUNS runs, each entry in one."""
+    blocks; at most MAX_CHUNKS chunks, each list at least a scan round's
+    share."""
     path = tmp_path / "dryrun.json"
     path.write_text(json.dumps([{"status": "ok",
                                  "roofline": {"dominant": d}}
@@ -267,11 +281,12 @@ def test_every_candidate_plans_long_lists(tmp_path, kind, G, D, kv,
     for cfg in cands:
         if kind == "verify":
             for Tq in (5, 30, 60):
-                bq, per_run, runs, wpt, stages = run_plan(
-                    Tq, G, 32 // G, entries, 16, D, kv, 132, cfg)
-                assert runs <= paged_attention.MAX_RUNS
-                assert (runs - 1) * per_run < entries <= runs * per_run
-                assert stages >= 1 and wpt in (1, 2, build.WARPS)
+                plan = run_plan(Tq, G, 32 // G, entries, 16, D, kv, 132, cfg)
+                assert 1 <= plan.chunks <= paged_attention.MAX_CHUNKS
+                assert plan.cap * plan.chunks >= min(
+                    entries, paged_attention.SCAN_BATCH)
+                assert plan.stages >= 1 and plan.wpt in (
+                    (0,) if plan.mma else (1, 2, build.WARPS))
         else:
             for B, T in ((1, 1), (6, 5), (64, 1)):
                 decode_plan(B, T, G, 32 // G, entries, 16, D, kv, 132, cfg)
@@ -279,7 +294,7 @@ def test_every_candidate_plans_long_lists(tmp_path, kind, G, D, kv,
 
 @pytest.mark.parametrize("fn,args,cfg,match", [
     (run_plan, (30, 6, 8, 16, 16, 128, 2, 132), at.FusedConfig(bq=4),
-     "rows a CTA"),
+     "query-tile"),
     (run_plan, (30, 1, 32, 16, 16, 128, 2, 132), at.FusedConfig(depth=5),
      "stages"),
     (run_plan, (30, 1, 32, 16, 16, 128, 4, 132), at.FusedConfig(depth=4),
@@ -356,18 +371,20 @@ def test_configs_reach_the_kernels_on_a_stubbed_card(monkeypatch, tmp_path):
     fused_decode.fused_paged_decode(**da)
     fused_decode.fused_paged_decode(**da, config=cold)
     assert calls[0] == calls[1] and calls[2] == calls[3]
-    # the plan's integers: Tq H Kh D bs M | bq per_run runs wpt stages
-    assert calls[0][1][6:11] == run_plan(30, 1, 32, 16, 16, 128, 2, 132)
+    # the plan's integers: Tq H Kh D bs M | tokens span chunks cap mma heads
+    # wpt stages
+    assert calls[0][1][6:14] == run_plan(30, 1, 32, 16, 16, 128, 2, 132)[:8]
     assert calls[2][1][7:10] == decode_plan(6, 1, 1, 12, 16, 16, 64, 2, 132)
     calls.clear()
-    fused_verify.fused_paged_verify(**va, config=at.FusedConfig(8, 8, 1))
+    fused_verify.fused_paged_verify(**va, config=at.FusedConfig(0, 1, 1))
     paged_attention.paged_verify_attention(**va)
     fused_decode.fused_paged_decode(**da, config=at.FusedConfig(2, 2, 1))
-    assert calls[0][1][6:9] == (8, 8, 2) and calls[0][1][10] == 1
-    assert calls[1][1][6:11] == run_plan(30, 1, 32, 16, 16, 128, 2, 132)
+    # bk 1: 16 // 30 chunks is still one; depth 1: one stage
+    assert calls[0][1][6:14] == (64, 4, 1, 16, 1, 1, 0, 1)
+    assert calls[1][1][6:14] == run_plan(30, 1, 32, 16, 16, 128, 2, 132)[:8]
     assert calls[2][1][7:10] == (2, 2, 1)
     assert build.LAUNCHES == {"fused_paged_verify": 3,
                               "paged_verify_attention": 1,
                               "fused_paged_decode": 3}
-    with pytest.raises(ValueError, match="rows a CTA"):
+    with pytest.raises(ValueError, match="query-tile"):
         fused_verify.fused_paged_verify(**va, config=at.FusedConfig(bq=32))

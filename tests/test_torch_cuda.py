@@ -63,6 +63,88 @@ def test_fused_verify_shuffled_entries(gen, kv, tree, n, bs, H, Kh):
            "fused_paged_verify", a)
 
 
+VERIFY_KERNELS = {
+    "fused_paged_verify": (fused_paged_verify, fused_paged_verify_plain),
+    "paged_verify_attention": (paged_attention.paged_verify_attention,
+                               paged_attention.paged_verify_attention_plain)}
+# the benchmark cells' verify geometries: (requests, H, Kh); W + 1 = 5
+# tokens a request, contexts 8-256, D 128, block size 16
+CELLS = {"qwen2.5-14b": (128, 40, 8), "internlm2-20b": (64, 48, 8)}
+
+
+@pytest.mark.parametrize("name", sorted(VERIFY_KERNELS))
+@pytest.mark.parametrize("cell", sorted(CELLS))
+@pytest.mark.parametrize("kv,tree", [
+    ("bf16", False), ("bf16", True), ("int8", False), ("int8", True),
+    ("fp8", False), ("fp8", True)])
+def test_verify_at_the_cells(gen, name, cell, kv, tree):
+    """#1 and #4 at the cells' shapes (Qwen: 128 requests x 5 tokens, H 40,
+    Kh 8; InternLM2: 64 x 5, H 48, Kh 8; contexts 8-256) on the tensor
+    cores: owners shuffled, padding entries among them, idle rows and
+    padding queries; one chunk, so no split."""
+    n, H, Kh = CELLS[cell]
+    lens = torch.randint(8, 257, (n,), generator=gen).tolist()
+    a = cases.verify_inputs(gen, lens, 4, H, Kh, 128, 16, kv, tree,
+                            shuffle=True)
+    splits = build.VERIFY_SPLITS
+    _check(*VERIFY_KERNELS[name], name, a)
+    assert build.VERIFY_SPLITS == splits
+
+
+@pytest.mark.parametrize("name", sorted(VERIFY_KERNELS))
+@pytest.mark.parametrize("kv,tree", [("bf16", False), ("int8", True),
+                                     ("fp8", False)])
+def test_verify_four_heads_a_cta(gen, name, kv, tree):
+    """G 1 over 40 requests (LLaMA-7B heads): four kv heads a CTA, their
+    K/V rows and int8/fp8 scales in one tile."""
+    lens = torch.randint(8, 300, (40,), generator=gen).tolist()
+    a = cases.verify_inputs(gen, lens, 4, 32, 32, 128, 16, kv, tree,
+                            shuffle=True)
+    assert paged_attention.verify_plan(
+        a["q"].shape[0], 1, 32, a["block_ids"].shape[0], 16, 128, 2,
+        a["k_pool"].element_size(), build.sm_count(a["q"].device)).heads == 4
+    _check(*VERIFY_KERNELS[name], name, a)
+
+
+@pytest.mark.parametrize("name", sorted(VERIFY_KERNELS))
+@pytest.mark.parametrize("kv,tree", [("bf16", False), ("int8", True)])
+def test_verify_splits_a_long_list(gen, name, kv, tree):
+    """chip_smoke's long-context call (LLaMA-7B heads, six requests of
+    2.5-8k tokens, a list of 4096 entries): the plan splits each segment's
+    entries into chunks merged in the launch."""
+    a = cases.verify_inputs(gen, [8000, 6500, 5000, 7000, 4500, 2500], 4,
+                            32, 32, 128, 16, kv, tree, shuffle=True)
+    splits = build.VERIFY_SPLITS
+    _check(*VERIFY_KERNELS[name], name, a)
+    assert build.VERIFY_SPLITS == splits + 1
+
+
+@pytest.mark.parametrize("name", sorted(VERIFY_KERNELS))
+def test_verify_streams_a_long_segment_in_windows(gen, name):
+    """One request of 50k tokens among 105 short ones (a list of 4096
+    entries, one chunk): its CTAs' share is longer than a list in shared
+    memory holds, so it streams in windows."""
+    a = cases.verify_inputs(gen, [50000] + [10] * 105, 4, 8, 8, 64, 16,
+                            "bf16", False, shuffle=True)
+    splits = build.VERIFY_SPLITS
+    _check(*VERIFY_KERNELS[name], name, a)
+    assert build.VERIFY_SPLITS == splits
+
+
+@pytest.mark.parametrize("name", sorted(VERIFY_KERNELS))
+@pytest.mark.parametrize("kv,tree", [("bf16", True), ("f32", False)])
+def test_verify_segments_need_not_be_contiguous(gen, name, kv, tree):
+    """The queries of a call in no order (each segment's tokens spread
+    over it): every run of one segment's tokens is a tile of its own."""
+    a = cases.verify_inputs(gen, [37, 180, 95, 12, 230, 61, 5, 140], 4, 24,
+                            4, 128, 16, kv, tree, shuffle=True)
+    perm = torch.randperm(a["q"].shape[0], generator=gen).to(a["q"].device)
+    for k in ("q", "q_seg", "q_pos", "q_anc"):
+        if a[k] is not None:
+            a[k] = a[k][perm].contiguous()
+    _check(*VERIFY_KERNELS[name], name, a)
+
+
 @pytest.mark.parametrize("kv,T,G", [
     ("f32", 5, 1), ("bf16", 1, 2), ("int8", 64, 1), ("fp8", 3, 4)])
 def test_fused_decode_matches_plain(gen, kv, T, G):

@@ -3,13 +3,15 @@
 * ``verify_attention.split_plan``: the split-KV grid of the dense packed
   verify covers every 32-slot tile exactly once, leaves no run empty and
   stays inside CUDA's grid limits up to 64k slots;
-* ``paged_attention.run_plan``: the runs of ``paged_verify_attention``
-  cover every block entry exactly once, leave no run empty, stay inside
-  CUDA's grid limits and shared memory, and fill the card at the ops
-  path's shape;
+* ``paged_attention.verify_plan``: the packed verify's chunks (by a model
+  of the kernel's scan) give every entry a segment owns to exactly one
+  chunk, leave no chunk with entries empty and no list overflowing, stay
+  inside CUDA's grid limits and shared memory; the benchmark cells' calls
+  are not split, long lists a token are; the route by dtype; the split
+  counter; the plain version needs no contiguous segments;
 * ``fused_verify.fused_paged_verify`` sizes and launches its call as
-  ``paged_verify_attention`` does (the same ``run_plan``, the shared
-  run-of-entries kernel) at the serving path's two geometries;
+  ``paged_verify_attention`` does (the same ``verify_plan``, the shared
+  kernel) at the serving path's geometries;
 * ``decode_attention.run_plan``: the runs of the dense decode cover every
   32-slot tile of a row once (and, by the kernel's rule, every live slot
   once; a row of length 0 is one empty run), fill the card at a long row
@@ -49,8 +51,10 @@ from repro_torch.kernels import paged_attention
 from repro_torch.kernels.flash_attention import MMA_HEAD_DIMS, route
 from repro_torch.kernels.fused_decode import decode_plan
 from repro_torch.kernels.fused_verify import fused_paged_verify
-from repro_torch.kernels.paged_attention import MAX_RUNS as RUNS_CAP
-from repro_torch.kernels.paged_attention import run_plan
+from repro_torch.kernels.paged_attention import (MAX_CHUNKS, MMA_ROWS,
+                                                 SCAN_BATCH, SEG_TOKENS,
+                                                 SMEM_PER_CTA, SPLIT_ENTRIES,
+                                                 mma_smem, verify_plan)
 from repro_torch.kernels.verify_attention import (KV_TILE, MAX_RUNS,
                                                   TAG_GROUP, split_plan)
 
@@ -82,9 +86,6 @@ def test_split_plan_fills_the_card_at_the_dense_path_shape():
     assert -(-30 // bq) * 32 * runs >= 2 * 132
 
 
-SMEM_PER_CTA = 227 * 1024
-
-
 def _align16(n):
     return -(-n // 16) * 16
 
@@ -107,62 +108,163 @@ def _check_pipeline(rows, D, kv_bytes, wpt, stages, extra):
         <= SMEM_PER_CTA
 
 
-ENTRIES = [1, 2, 15, 16, 17, 31, 63, 64, 65, 255, 1000, 4095, 4096]
+ENTRIES = [0, 1, 2, 15, 16, 17, 63, 64, 65, 1000, 2049, 4095, 4096]
 RUN_GEOMETRIES = [(1, 1, 32), (30, 1, 32), (192, 1, 32), (30, 6, 8),
-                  (7, 8, 8), (192, 8, 8), (192, 6, 1)]
+                  (7, 8, 8), (192, 8, 8), (192, 6, 1), (640, 5, 8)]
+
+
+def _owners(M, Tq, seed):
+    """A block list of M entries over max(1, Tq // 5) segments in no
+    order: segment 0 owns about half (a long request), the others the
+    rest, about one entry in ten is padding (-1)."""
+    rng = np.random.default_rng(seed)
+    n_seg = max(1, Tq // 5)
+    own = np.where(rng.random(M) < 0.5, 0, rng.integers(0, n_seg, M))
+    return np.where(rng.random(M) < 0.1, -1, own), n_seg
+
+
+def _deal(owner, seg, z, chunks, cap):
+    """The kernel's scan (csrc/verify_runs.cuh ``scan_window``): the
+    windows of entries chunk z of segment ``seg`` lists, in list order,
+    and the segment's entries.  Rounds of SCAN_BATCH entries; a round that
+    could overflow ``cap`` starts a new window; each listed entry's slot
+    in its window is checked to lie in [0, cap)."""
+    M = len(owner)
+    match = np.asarray(owner) == seg
+
+    def share(n):
+        return (n - z + chunks - 1) // chunks if n > z else 0
+
+    pos = n_seg = before = 0
+    windows = []
+    while True:
+        n_list, listed = 0, []
+        while pos < M:
+            take = min(SCAN_BATCH, M - pos)
+            if n_list > 0 and (n_list + share(n_seg + take) - share(n_seg)
+                               > cap):
+                break
+            idx = pos + np.nonzero(match[pos:pos + take])[0]
+            ranks = n_seg + np.arange(len(idx))
+            mine = ranks % chunks == z
+            k = ranks[mine] // chunks - before
+            assert list(k) == list(range(n_list, n_list + len(k)))
+            assert (k < cap).all()
+            listed += idx[mine].tolist()
+            n_seg += len(idx)
+            n_list = share(n_seg) - before
+            pos += take
+        windows.append(listed)
+        before += n_list
+        if pos >= M:
+            return windows, n_seg
 
 
 @pytest.mark.parametrize("Tq,G,Kh", RUN_GEOMETRIES)
 @pytest.mark.parametrize("M", ENTRIES)
-def test_run_plan_covers_every_entry_once(Tq, G, Kh, M):
-    bq, per_run, runs, wpt, stages = run_plan(Tq, G, Kh, M, 16, 128, 2,
-                                              sms=132)
-    covered = [e for z in range(runs)
-               for e in range(z * per_run, min(M, (z + 1) * per_run))]
-    assert covered == list(range(M))
-    assert all(z * per_run < M for z in range(runs)), "an empty run"
-    assert 1 <= runs <= RUNS_CAP
-    # CUDA: grid x < 2^31, y and z <= 65535; a CTA holds <= 16 rows
-    assert 1 <= bq and bq * G <= build.MAX_ROWS
-    assert -(-Tq // bq) < 2**31 and Kh <= 65535 and runs <= 65535
-    # shared memory: the run's lists (entry, block, owner) and the queries
-    _check_pipeline(bq * G, 128, 2, wpt, stages,
-                    3 * _align16(4 * per_run) + _align16(4 * bq * G * 128))
+def test_verify_plan_deals_every_entry_to_one_chunk(Tq, G, Kh, M):
+    """Every entry a segment owns is streamed by exactly one chunk of its
+    tile, min(chunks, entries) chunks hold one or more and the rest none
+    (they exit before any partial); no window of a chunk with entries is
+    empty and none overflows the list; the grid, the rows and the shared
+    memory stay inside CUDA's limits and the plan's own formula."""
+    plan = verify_plan(Tq, G, Kh, M, 16, 128, 2, 2, 132)
+    owner, n_seg = _owners(M, Tq, seed=Tq * 7919 + M)
+    for seg in {0, n_seg - 1, n_seg}:      # n_seg: a segment with no entry
+        got = []
+        for z in range(plan.chunks):
+            windows, n = _deal(owner, seg, z, plan.chunks, plan.cap)
+            entries = [e for w in windows for e in w]
+            assert (len(entries) > 0) == (z < min(plan.chunks, n))
+            assert all(windows) or windows == [[]]
+            got += entries
+        assert sorted(got) == np.nonzero(owner == seg)[0].tolist()
+    assert plan.mma and plan.tokens == MMA_ROWS // (G * plan.heads)
+    assert Kh % plan.heads == 0 and plan.tokens >= min(SEG_TOKENS,
+                                                       MMA_ROWS // G)
+    assert 1 <= plan.chunks <= MAX_CHUNKS
+    assert plan.cap * plan.chunks >= min(M, SCAN_BATCH) and plan.cap >= 1
+    # CUDA: grid x < 2^31, y and z <= 65535
+    assert Tq < 2**31 and Kh <= 65535 and plan.chunks <= 65535
+    assert plan.smem == mma_smem(plan.cap, 128, 2, plan.stages)
+    assert plan.smem <= SMEM_PER_CTA
 
 
-def test_run_plan_without_entries_writes_zeros_in_one_run():
-    bq, per_run, runs, _, _ = run_plan(30, 1, 32, 0, 16, 128, 2, sms=132)
-    assert runs == 1 and per_run >= 1
+def test_verify_plan_keeps_the_cells_whole():
+    """The benchmark cells' calls (Qwen2.5-14B: 128 requests x 5 tokens, G
+    5, a list of 1024; InternLM2-20B: 64 x 5, G 6, 512): one chunk -- no
+    partials, no counters, no merge -- a request's five tokens of two kv
+    heads in one tile on the tensor cores, and two CTAs an SM by shared
+    memory."""
+    for Tq, G, M in ((640, 5, 1024), (320, 6, 512)):
+        plan = verify_plan(Tq, G, 8, M, 16, 128, 2, 2, 132)
+        assert plan.chunks == 1 and plan.mma and plan.heads == 2
+        assert plan.tokens >= 5
+        assert plan.cap == M and 2 * (plan.smem + 1024) <= 228 * 1024
 
 
-def test_run_plan_fills_the_card_at_the_ops_path_shape():
-    """q (30, 32, 128) over 16 entries of 16 slots: about two CTAs per SM,
-    one run per (query tile, head) -- no partials, no merge -- and one row
-    per warp, the tiles streamed through more than one stage."""
-    bq, per_run, runs, wpt, stages = run_plan(30, 1, 32, 16, 16, 128, 2,
-                                              sms=132)
-    ctas = -(-30 // bq) * 32 * runs
-    assert 1.5 * 132 <= ctas <= 2.5 * 132
-    assert runs == 1 and per_run == 16
-    assert bq * 1 == wpt == build.WARPS and stages >= 2
+@pytest.mark.parametrize("Tq,G,Kh,M", [(42, 1, 32, 4096), (30, 1, 32, 4096),
+                                       (80, 5, 8, 4096), (16, 5, 8, 2048)])
+def test_verify_plan_splits_long_lists(Tq, G, Kh, M):
+    """Few segments over long lists (chip_smoke's 4096-entry LLaMA-7B
+    call, a long-prompt cohort of 16 requests): the segments' entries are
+    dealt to several chunks, about SPLIT_ENTRIES entries a query token
+    each, so no CTA streams a whole request alone."""
+    plan = verify_plan(Tq, G, Kh, M, 16, 128, 2, 2, 132)
+    assert plan.chunks == min(MAX_CHUNKS, M // (Tq * SPLIT_ENTRIES)) > 1
+    assert plan.cap == -(-M // plan.chunks)
 
 
-def test_run_plan_splits_long_lists_into_runs():
-    """4096 entries (65536 slots): runs of at most MAX_RUN_SLOTS slots up
-    to the cap on runs, so no CTA walks the whole list alone."""
-    _, per_run, runs, _, _ = run_plan(30, 1, 32, 4096, 16, 128, 2, sms=132)
-    assert runs == RUNS_CAP and per_run * runs >= 4096
+@pytest.mark.parametrize("Tq,G,Kh,M,heads", [
+    (652, 5, 8, 1024, 2), (332, 6, 8, 512, 2), (212, 1, 32, 256, 4),
+    (212, 2, 8, 256, 2), (30, 1, 32, 16, 1), (42, 1, 32, 4096, 1),
+    (652, 16, 8, 1024, 1), (652, 5, 5, 1024, 1), (80, 5, 8, 200, 1),
+    (320, 6, 8, 512, 2), (42, 6, 8, 64, 1)])
+def test_verify_plan_heads_a_cta(Tq, G, Kh, M, heads):
+    """Kv heads a tensor-core CTA: the most of 4, 2, 1 that divides Kh,
+    leaves a tile SEG_TOKENS tokens and, at a segment every SEG_TOKENS
+    tokens, a CTA an SM; one where the plan splits."""
+    plan = verify_plan(Tq, G, Kh, M, 16, 128, 2, 2, 132)
+    assert plan.heads == heads
+    assert plan.tokens == MMA_ROWS // (G * heads)
+
+
+def test_verify_plan_without_entries_is_one_chunk():
+    plan = verify_plan(30, 1, 32, 0, 16, 128, 2, 2, 132)
+    assert plan.chunks == 1 and plan.cap == 1
+
+
+@pytest.mark.parametrize("q_bytes,kv_bytes,D,mma", [
+    (2, 2, 128, True), (2, 1, 128, True), (2, 2, 64, True), (2, 1, 96, True),
+    (2, 2, 16, True), (4, 4, 128, False), (2, 4, 128, False),
+    (4, 2, 128, False), (2, 2, 12, False), (2, 2, 40, False),
+    (2, 1, 8, False)])
+def test_verify_plan_routes_by_dtype(q_bytes, kv_bytes, D, mma):
+    """bf16 queries over bf16/int8/fp8 pools at a head dim of whole 16-wide
+    k-steps score on the tensor cores; float32 queries or pools, or
+    another head dim, on the CUDA cores (float32 arithmetic), whose rows,
+    teams and stages stay inside the tile pipeline's limits."""
+    plan = verify_plan(30, 4, 8, 64, 16, D, q_bytes, kv_bytes, 132)
+    assert plan.mma == mma
+    if mma:
+        assert plan.wpt == 0 and plan.tokens * 4 * plan.heads <= MMA_ROWS
+    else:
+        rows = plan.tokens * 4
+        assert rows == build.MAX_ROWS
+        _check_pipeline(rows, D, kv_bytes, plan.wpt, plan.stages,
+                        2 * _align16(4 * plan.cap) + _align16(4 * rows * D))
 
 
 def test_fused_verify_sizes_its_call_as_paged_verify(monkeypatch):
-    """At the paged path's two verify geometries (LLaMA-7B q (30, 32, 128),
-    dbrx q (30, 48, 128) over a Kh 8 pool; 16 entries of 16 slots) both
-    wrappers take the same plan, launch the same kernel arguments through
-    their own entries (``fused_verify.cu``, ``paged_attention.cu``) and
-    count one launch each under their own names.  The card's pieces are
-    stubbed: meta tensors carry the shapes."""
+    """At the paged path's verify geometries (LLaMA-7B q (30, 32, 128),
+    dbrx q (30, 48, 128) over a Kh 8 pool, 16 entries of 16 slots; the
+    Qwen cell's q (640, 40, 128) over 1024 entries) both wrappers take the
+    same plan, launch the same kernel arguments through their own entries
+    (``fused_verify.cu``, ``paged_attention.cu``) and count one launch
+    each under their own names.  The card's pieces are stubbed: meta
+    tensors carry the shapes."""
     plans, calls = [], []
-    real = paged_attention.run_plan
+    real = paged_attention.verify_plan
 
     def plan(*a):
         plans.append(real(*a))
@@ -171,38 +273,183 @@ def test_fused_verify_sizes_its_call_as_paged_verify(monkeypatch):
     def c_fn(source, name, n_ptr, n_int):
         return lambda *args: calls.append((source, name, args[n_ptr:])) or 0
 
-    monkeypatch.setattr(paged_attention, "run_plan", plan)
+    monkeypatch.setattr(paged_attention, "verify_plan", plan)
     monkeypatch.setattr(paged_attention, "_c_fn", c_fn)
     monkeypatch.setattr(build, "check_pools", lambda *a: (1, 1))
     monkeypatch.setattr(build, "sm_count", lambda device: 132)
     monkeypatch.setattr(build, "stream_of", lambda t: 0)
     monkeypatch.setattr(build, "ptr", lambda t: None)
     monkeypatch.setattr(build, "LAUNCHES", collections.Counter())
-    meta = dict(device="meta")
-    for H, Kh in ((32, 32), (48, 8)):
-        i32 = dict(dtype=torch.int32, **meta)
-        a = dict(q=torch.empty(30, H, 128, dtype=torch.bfloat16, **meta),
-                 k_pool=torch.empty(96, 16, Kh, 128, dtype=torch.bfloat16,
-                                    **meta),
-                 pool_seg=torch.empty(96, 16, **i32),
-                 pool_pos=torch.empty(96, 16, **i32),
-                 q_seg=torch.empty(30, **i32), q_pos=torch.empty(30, **i32),
-                 block_ids=torch.empty(16, **i32),
-                 block_owner=torch.empty(16, **i32))
-        a["v_pool"] = a["k_pool"]
+    for Tq, H, Kh, M in ((30, 32, 32, 16), (30, 48, 8, 16),
+                         (640, 40, 8, 1024)):
+        a = _meta_verify_args(Tq, H, Kh, M)
         fused_paged_verify(**a)
         paged_attention.paged_verify_attention(**a)
-    assert plans[0] == plans[1] and plans[2] == plans[3]
-    # LLaMA-7B: four tokens a CTA, one row a warp, one run (no merge);
-    # dbrx: one token (six rows over four warps), one run
-    assert plans[0][:3] == (4, 16, 1) and plans[0][3] == build.WARPS
-    assert plans[2][:3] == (1, 16, 1)
+    assert plans[0::2] == plans[1::2]
+    # one tile a request on the tensor cores, one chunk (no merge); two kv
+    # heads a CTA where the grid stays full (the Qwen cell), else one
+    assert [p[:6] for p in plans[0::2]] == [
+        (64, 4, 1, 16, True, 1), (10, 4, 1, 16, True, 1),
+        (6, 4, 1, 1024, True, 2)]
     assert [c[:2] for c in calls] == [
         ("fused_verify", "fused_paged_verify"),
-        ("paged_attention", "paged_verify_attention")] * 2
-    assert calls[0][2] == calls[1][2] and calls[2][2] == calls[3][2]
-    assert build.LAUNCHES == {"fused_paged_verify": 2,
-                              "paged_verify_attention": 2}
+        ("paged_attention", "paged_verify_attention")] * 3
+    for i in range(3):
+        assert calls[2 * i][2] == calls[2 * i + 1][2]
+        assert calls[2 * i][2][6:14] == tuple(plans[2 * i][:8])
+    assert build.LAUNCHES == {"fused_paged_verify": 3,
+                              "paged_verify_attention": 3}
+
+
+def _meta_verify_args(Tq, H, Kh, M, N=96):
+    meta = dict(device="meta")
+    i32 = dict(dtype=torch.int32, **meta)
+    a = dict(q=torch.empty(Tq, H, 128, dtype=torch.bfloat16, **meta),
+             k_pool=torch.empty(N, 16, Kh, 128, dtype=torch.bfloat16,
+                                **meta),
+             pool_seg=torch.empty(N, 16, **i32),
+             pool_pos=torch.empty(N, 16, **i32),
+             q_seg=torch.empty(Tq, **i32), q_pos=torch.empty(Tq, **i32),
+             block_ids=torch.empty(M, **i32),
+             block_owner=torch.empty(M, **i32))
+    a["v_pool"] = a["k_pool"]
+    return a
+
+
+def test_split_counter_counts_only_split_calls(monkeypatch):
+    """``build.VERIFY_SPLITS`` counts the #1/#4 calls whose plan split a
+    segment's entries (where the merge runs): none at the two cells'
+    shapes, one a call on chip_smoke's 4096-entry list.  Stubbed card, as
+    above."""
+    monkeypatch.setattr(paged_attention, "_c_fn",
+                        lambda *a: (lambda *args: 0))
+    monkeypatch.setattr(build, "check_pools", lambda *a: (1, 1))
+    monkeypatch.setattr(build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(build, "ptr", lambda t: None)
+    monkeypatch.setattr(build, "LAUNCHES", collections.Counter())
+    monkeypatch.setattr(build, "VERIFY_SPLITS", 0)
+    for Tq, H, M in ((640, 40, 1024), (320, 48, 512)):
+        fused_paged_verify(**_meta_verify_args(Tq, H, 8, M))
+        paged_attention.paged_verify_attention(
+            **_meta_verify_args(Tq, H, 8, M))
+    assert build.VERIFY_SPLITS == 0
+    fused_paged_verify(**_meta_verify_args(42, 32, 32, 4096, N=4100))
+    paged_attention.paged_verify_attention(
+        **_meta_verify_args(42, 32, 32, 4096, N=4100))
+    assert build.VERIFY_SPLITS == 2
+    assert build.LAUNCHES == {"fused_paged_verify": 3,
+                              "paged_verify_attention": 3}
+
+
+def _find_tiles(q_seg, span, TQ):
+    """The kernel's tile finding (csrc/verify_runs.cuh ``load_window`` and
+    ``find_tile``), lane by lane: the tiles (first token, tokens) the
+    CTAs of ``span`` tokens start, and the padding tokens they zero."""
+    Tq, OUT = len(q_seg), -2**31
+    seg_at = lambda i: q_seg[i] if 0 <= i < Tq else OUT  # noqa: E731
+    tiles, zeroed = [], []
+    for base in range(0, Tq, span):
+        w0 = [seg_at(base - 32 + ln) for ln in range(32)]
+        w1 = [seg_at(base + ln) for ln in range(32)]
+        w2 = [seg_at(base + 32 + ln) for ln in range(32)]
+        for j in range(min(span, Tq - base)):
+            t, seg = base + j, w1[j]
+            if seg < 0:
+                zeroed.append(t)
+                continue
+            b1 = [ln for ln in range(32) if ln < j and w1[ln] != seg]
+            b0 = [ln for ln in range(32) if w0[ln] != seg]
+            if b1:
+                start = base + max(b1) + 1
+            elif b0:
+                start = base - 32 + max(b0) + 1
+            else:
+                b = base - 33
+                while True:
+                    bal = [ln for ln in range(32)
+                           if b - ln < 0 or q_seg[b - ln] != seg]
+                    if bal:
+                        start = b - min(bal) + 1
+                        break
+                    b -= 32
+            if (t - start) % TQ:
+                continue
+            end = min(t + TQ, Tq)
+            e1 = [ln for ln in range(32) if ln > j and w1[ln] != seg]
+            e2 = [ln for ln in range(32) if w2[ln] != seg]
+            if e1:
+                end = min(end, base + min(e1))
+            elif e2:
+                end = min(end, base + 32 + min(e2))
+            else:
+                b2 = base + 64
+                while b2 < end:
+                    e = [ln for ln in range(32) if b2 + ln < end and (
+                        b2 + ln >= Tq or q_seg[b2 + ln] != seg)]
+                    if e:
+                        end = b2 + min(e)
+                        break
+                    b2 += 32
+            tiles.append((t, end - t))
+    return tiles, zeroed
+
+
+def _layout(kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "serving":     # 5 tokens a request, idle rows, padding
+        return [r for r in range(40) for _ in range(5)] + [-1] * 3
+    if kind == "spread":      # the same queries in no order
+        q = [r for r in range(40) for _ in range(5)] + [-1] * 3
+        return list(rng.permutation(q))
+    if kind == "long runs":   # chunked prefill: runs of 1-200 tokens
+        return [int(s) for s, n in enumerate(rng.integers(1, 200, 12))
+                for _ in range(n)]
+    return [int(x) for x in rng.integers(-1, 3, 150)]   # short, repeating
+
+
+@pytest.mark.parametrize("kind", ["serving", "spread", "long runs", "mixed"])
+@pytest.mark.parametrize("span,TQ", [(1, 4), (4, 4), (4, 5), (4, 6),
+                                     (4, 16), (4, 64), (1, 64)])
+def test_find_tile_covers_every_query_once(kind, span, TQ):
+    """By the kernel's rule every query of a segment lies in exactly one
+    tile (a run of one segment's tokens cut every TQ tokens from its
+    start), whatever the order of the queries, and every padding query
+    is zeroed once."""
+    q_seg = _layout(kind, seed=TQ * 31 + span)
+    tiles, zeroed = _find_tiles(q_seg, span, TQ)
+    want = []
+    t = 0
+    while t < len(q_seg):
+        e = t
+        while e < len(q_seg) and q_seg[e] == q_seg[t]:
+            e += 1
+        if q_seg[t] >= 0:
+            want += [(s, min(TQ, e - s)) for s in range(t, e, TQ)]
+        t = e
+    assert sorted(tiles) == want
+    assert zeroed == [i for i, x in enumerate(q_seg) if x < 0]
+
+
+@pytest.mark.parametrize("tree", [False, True])
+def test_plain_verify_needs_no_contiguous_segments(tree):
+    """The plain version (the kernels' oracle) gives each query the same
+    row whether a segment's queries are contiguous or spread over the
+    call (the serving path's layout has them contiguous; the kernel tiles
+    each run of one segment's tokens on its own)."""
+    a = cases.verify_inputs(torch.Generator().manual_seed(5),
+                            [37, 5, 90, 20], 4, 8, 4, 32, 16, "f32", tree,
+                            shuffle=True, device="cpu")
+    want = paged_attention.paged_verify_attention_plain(**a)
+    perm = torch.randperm(a["q"].shape[0],
+                          generator=torch.Generator().manual_seed(6))
+    b = dict(a)
+    for k in ("q", "q_seg", "q_pos", "q_anc"):
+        if a[k] is not None:
+            b[k] = a[k][perm].contiguous()
+    assert (a["q_seg"][perm][1:] != a["q_seg"][perm][:-1]).sum() > 8
+    got = paged_attention.paged_verify_attention_plain(**b)
+    torch.testing.assert_close(got, want[perm], rtol=0, atol=0)
 
 
 DENSE_GEOMETRIES = [  # B, G, Kh, D, kv bytes
