@@ -1,8 +1,9 @@
 """The comparison that decides ``correct``.
 
 Once the window has closed and the program's state is freed, a sample
-drawn from the seed is judged against the plain reference
-(``reference/<config["reference"]>.py``):
+drawn from the seed is judged against each model's plain reference
+(``reference/<name>.py``: the model entry's ``"reference"``, else the
+configuration's):
 
 * ``llm_gap``: of the requests finished in the window, the one with the
   most served tokens and ``sample_requests - 1`` others; the reference runs

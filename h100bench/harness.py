@@ -4,9 +4,14 @@ Everything a cell needs is found by name: its configuration file (the
 ``file`` of its ``configs`` entry), its traffic file
 (``<bench>/traffic/<traffic>.json``), the reader of each of its metrics
 (``<bench>/metrics/<metric>.py``, a ``read(record)`` that returns a number
-or None) and its reference (``<bench>/reference/<config["reference"]>.py``),
-where ``<bench>`` is the first of ``paths``.  A later cell, mix, metric or
-model adds files and entries; it edits none of these.
+or None), and for each model of the configuration (``llm`` and each of
+``ssms``) its architecture module (``<bench>/arch/<arch>.py``: the port's
+config, the weights' layout and the model FLOPs; ``arch`` is the model
+entry's ``"arch"``, ``decoder`` where it names none) and its reference
+(``<bench>/reference/<reference>.py``; the model entry's ``"reference"``,
+else the configuration's), where ``<bench>`` is the first of ``paths``.
+A later cell, mix, metric or model adds files and entries; it edits none
+of these.
 
 A run: set-up (the CUDA context, the weights made on the device from the
 seed, the port's kernels #1/#2 built or loaded, ``SpinEngine`` built, the
@@ -98,16 +103,12 @@ def forbidden_modules():
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
-def port_config(m: dict, dtype: str):
-    from repro_torch.models.config import ATTN, ModelConfig
-    return ModelConfig(
-        name=m["name"], family="dense", n_layers=m["num_hidden_layers"],
-        d_model=m["hidden_size"], n_heads=m["num_attention_heads"],
-        n_kv_heads=m["num_key_value_heads"], d_ff=m["intermediate_size"],
-        vocab_size=m["vocab_size"], head_dim=W.head_dim(m),
-        qkv_bias=bool(m.get("qkv_bias")), unit=(ATTN,),
-        rope_theta=float(m["rope_theta"]), norm_eps=float(m["rms_norm_eps"]),
-        tie_embeddings=bool(m["tie_word_embeddings"]), dtype=dtype)
+def model_module(spec: dict, m: dict, kind: str):
+    """Model ``m``'s architecture module (``kind`` "arch") or reference
+    module (``kind`` "reference"), by the name its entry gives, else the
+    default: ``decoder``, or the configuration's ``reference``."""
+    default = "decoder" if kind == "arch" else spec["config"]["reference"]
+    return load_module(spec["home"] / kind / f"{m.get(kind, default)}.py")
 
 
 class Rec:
@@ -334,8 +335,8 @@ class Probe:
             return out
         return wrapper
 
-    def flops(self, models):
-        return sum(work.forward_flops(models[m], start, n)
+    def flops(self, models, archs):
+        return sum(archs[m].flops(models[m], start, n)
                    for m, start, n in self.shapes)
 
 
@@ -551,9 +552,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
 
     t = time.perf_counter()
     models = [cfg["llm"]] + list(cfg["ssms"])
+    archs = [model_module(spec, m, "arch") for m in models]
     dtype = getattr(torch, serving["dtype"])
-    params = [W.make(m, cfg["init"], W.model_seed(seed, i), dev, dtype)
-              for i, m in enumerate(models)]
+    params = [W.make(a.layout(m, cfg["init"]), W.model_seed(seed, i), dev,
+                     dtype)
+              for i, (m, a) in enumerate(zip(models, archs))]
     sync()
     parts["weights"] = time.perf_counter() - t
 
@@ -565,8 +568,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     parts["kernels"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    bundles = [sd.Bundle(port_config(m, serving["dtype"]), p)
-               for m, p in zip(models, params)]
+    bundles = [sd.Bundle(a.port_config(m, serving["dtype"]), p)
+               for m, a, p in zip(models, archs, params)]
     loop = traffic["loop"]
     capacity = int(traffic["engine"]["capacity"])
     stream = TR.Stream(traffic, cfg["llm"]["vocab_size"], seed)
@@ -628,7 +631,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     flops = span_slots = idle = prof = None
     busy_s = window_busy_s(stretches) if stretches else None
     if trace:
-        flops = probe.flops(models)
+        flops = probe.flops(models, archs)
         probe.timing = True
         span_slots = driver.run_slots(int(traffic["span_slots"]))
         probe.timing = False
@@ -738,9 +741,9 @@ def judge(spec, params, finished, served, drafts, seed, control):
     same numbers, {name: value}."""
     cfg = spec["config"]
     lim = cfg["check"]
-    ref = load_module(spec["home"] / "reference" / f"{cfg['reference']}.py")
     rng = np.random.default_rng([int(seed), 0xC4EC])
     models = [cfg["llm"]] + list(cfg["ssms"])
+    refs = [model_module(spec, m, "reference") for m in models]
     checks, ctrl = {}, {}
     if not finished:
         checks["finished_requests"] = (0.0, -1.0)
@@ -750,7 +753,8 @@ def judge(spec, params, finished, served, drafts, seed, control):
                         int(lim["sample_requests"]), rng):
         prompt, emitted = served[finished[i].rid]
         seqs.append((np.concatenate([prompt, emitted]), len(prompt)))
-    gap, n, cgap = check.widest_gap(ref, params[0], models[0], seqs, control)
+    gap, n, cgap = check.widest_gap(refs[0], params[0], models[0], seqs,
+                                    control)
     log(f"llm_gap over {len(seqs)} requests, {n} served tokens")
     checks["llm_gap"] = (gap, float(lim["llm_gap"]))
     if control:
@@ -767,8 +771,8 @@ def judge(spec, params, finished, served, drafts, seed, control):
             prompt, emitted = served[rid]
             ctx = np.concatenate([prompt, emitted[:n_emitted]])
             seqs.append((np.concatenate([ctx, toks]), len(ctx)))
-        gap, n, cgap = check.widest_gap(ref, params[j + 1], models[j + 1],
-                                        seqs, control)
+        gap, n, cgap = check.widest_gap(refs[j + 1], params[j + 1],
+                                        models[j + 1], seqs, control)
         total += n
         worst = max(worst, gap)
         if cgap is not None:

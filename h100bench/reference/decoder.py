@@ -82,7 +82,8 @@ def rope(x, theta):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
 
 
-def layer(x, p, m, quant):
+def attention(x, p, m, quant):
+    """x plus the layer's causal self-attention of ``rms_norm(x)``."""
     B, S, d = x.shape
     H, Kh, hd = m["num_attention_heads"], m["num_key_value_heads"], head_dim(m)
     eps = m["rms_norm_eps"]
@@ -100,9 +101,14 @@ def layer(x, p, m, quant):
     causal = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
     s = s.masked_fill(~causal, float("-inf"))
     o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
-    x = x + matmul(o.reshape(B * S, H * hd), p["wo"].reshape(H * hd, d),
-                   quant).view(B, S, d)
-    h = rms_norm(x, p["ln2"], eps).reshape(B * S, d)
+    return x + matmul(o.reshape(B * S, H * hd), p["wo"].reshape(H * hd, d),
+                      quant).view(B, S, d)
+
+
+def layer(x, p, m, quant):
+    x = attention(x, p, m, quant)
+    B, S, d = x.shape
+    h = rms_norm(x, p["ln2"], m["rms_norm_eps"]).reshape(B * S, d)
     a = F.silu(matmul(h, p["w_gate"], quant)) * matmul(h, p["w_up"], quant)
     return x + matmul(a, p["w_down"], quant).view(B, S, d)
 

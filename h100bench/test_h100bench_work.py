@@ -1,5 +1,6 @@
 """The yardstick's counts against hand counts, one call each."""
 
+import importlib
 import json
 from pathlib import Path
 
@@ -7,6 +8,7 @@ import pytest
 import torch
 
 from h100bench import work
+from h100bench.arch import decoder
 
 HOME = Path(__file__).resolve().parent
 
@@ -49,13 +51,34 @@ def test_model_flops_by_hand():
                    .read_text())["llm"]
     d, ff, V, L = 5120, 13824, 152064, 48
     per_layer = d * 40 * 128 + 2 * d * 8 * 128 + 40 * 128 * d + 3 * d * ff
-    assert work.dense_flops_per_token(m) == 2 * (L * per_layer + d * V)
+    assert decoder.dense_flops_per_token(m) == 2 * (L * per_layer + d * V)
     # 14.8e9 parameters less the input embedding's 0.8e9: 28.0 GFLOP
-    assert 27.5e9 < work.dense_flops_per_token(m) < 28.5e9
+    assert 27.5e9 < decoder.dense_flops_per_token(m) < 28.5e9
     # 3 tokens after 5 cached: 6 + 7 + 8 pairs
-    assert work.causal_pairs(5, 3) == 21
-    assert work.forward_flops(m, 5, 3) == (
-        3 * work.dense_flops_per_token(m) + 4 * 40 * 128 * 21 * L)
+    assert decoder.causal_pairs(5, 3) == 21
+    assert decoder.flops(m, 5, 3) == (
+        3 * decoder.dense_flops_per_token(m) + 4 * 40 * 128 * 21 * L)
+
+
+# ``work.forward_flops`` of each real model at commit
+# b1f1c693e5168e125e74172c7ed8bebc8a8c2b01, at (start, n) = (0, 1),
+# (5, 3) and (200, 640)
+PARENT_FLOPS = {
+    ("internlm2-20b-spin", 0): [38585106432, 115776552960, 25086677483520],
+    ("internlm2-20b-spin", 1): [3399155712, 10201006080, 2240827883520],
+    ("qwen2.5-14b-spin", 0): [27982233600, 83964395520, 18235470643200],
+    ("qwen2.5-14b-spin", 1): [988237824, 2966261760, 661070807040],
+}
+
+
+@pytest.mark.parametrize("name,i", sorted(PARENT_FLOPS))
+def test_model_flops_are_the_parents(name, i):
+    cfg = json.loads((HOME / "configs" / f"{name}.json").read_text())
+    m = ([cfg["llm"]] + cfg["ssms"])[i]
+    arch = importlib.import_module("h100bench.arch."
+                                   + m.get("arch", "decoder"))
+    assert [arch.flops(m, s, n) for s, n in ((0, 1), (5, 3), (200, 640))
+            ] == PARENT_FLOPS[name, i]
 
 
 def test_device_time_union_and_gaps():

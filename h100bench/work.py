@@ -1,5 +1,5 @@
-"""The yardstick: the H100's peaks, a kernel call's bytes and operations,
-the model FLOPs of a forward, and the device's busy time in a trace.
+"""The yardstick: the H100's peaks, a kernel call's bytes and operations
+and the device's busy time in a trace (model FLOPs: ``arch/<name>.py``).
 
 ``device_time``, ``verify_work``, ``decode_work`` and ``bound`` are frozen
 copies of ``chip_smoke.py`` at commit
@@ -97,41 +97,3 @@ def idle_gaps(spans, t0, t1):
     if cur < t1:
         gaps.append((cur, t1))
     return [(a, b) for a, b in gaps if b > a]
-
-
-# ----------------------------------------------------- model FLOPs --
-
-def dense_flops_per_token(m: dict) -> int:
-    """Matmul FLOPs of one token through a decoder of the config's widths
-    (2 per multiply-add): the projections, the SwiGLU MLP and the LM head
-    over the published vocabulary."""
-    d, H, Kh, hd = (m["hidden_size"], m["num_attention_heads"],
-                    m["num_key_value_heads"], head_dim(m))
-    per_layer = d * (H + 2 * Kh) * hd + H * hd * d + 3 * d * m[
-        "intermediate_size"]
-    return 2 * (m["num_hidden_layers"] * per_layer
-                + d * m["vocab_size"])
-
-
-def attention_flops(m: dict, attended: int) -> int:
-    """FLOPs of scores and values over ``attended`` (query, key) pairs,
-    summed over the layers."""
-    return (4 * m["num_attention_heads"] * head_dim(m) * attended
-            * m["num_hidden_layers"])
-
-
-def causal_pairs(start: int, n: int) -> int:
-    """(query, key) pairs of ``n`` causal tokens after ``start`` cached
-    ones, each token attending itself."""
-    return n * start + n * (n + 1) // 2
-
-
-def forward_flops(m: dict, start: int, n: int) -> int:
-    """Model FLOPs of ``n`` tokens of one sequence after ``start`` cached
-    ones."""
-    return (n * dense_flops_per_token(m)
-            + attention_flops(m, causal_pairs(start, n)))
-
-
-def head_dim(m: dict) -> int:
-    return m.get("head_dim") or m["hidden_size"] // m["num_attention_heads"]
