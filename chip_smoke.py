@@ -64,17 +64,24 @@ script then exits non-zero without its last line.  Phases:
    heads, 8 experts top-2, window 4096, vocab 32768), depth cut to 4 of 56
    layers, with the SSM zoo at the LLM's vocabulary, random bf16 weights;
    its window sends the engine to the dense layout (plain windowed
-   attention, as the reference); one untimed and three timed runs; then
-   layer 0's q/k/v of one seeded 6144-token prompt (longer than the
-   window) for phase 12;
+   attention, as the reference), its experts run dropless through
+   ``ops.moe_experts``; one untimed run keeping that kernel's largest
+   input and three timed runs (launch counts as in phase 4, the kernel
+   required); ``moe_experts`` held against its plain version on that
+   input; then layer 0's q/k/v of one seeded 6144-token prompt (longer
+   than the window) for phase 12;
 10. the MoE paged path: dbrx-132b at published widths (16 experts top-4,
    vocab 100352), 2 of 40 layers, paged bf16 KV, fused kernels (GQA group
    6); one untimed pass keeping the kernels' largest inputs, three timed
-   runs (launch counts as in phase 4), then ``fused_paged_verify`` and
-   ``fused_paged_decode`` held against their plain versions on those
-   inputs;
+   runs (launch counts as in phase 4, ``moe_experts`` required), then
+   ``fused_paged_verify``, ``fused_paged_decode`` and ``moe_experts`` held
+   against their plain versions on those inputs;
 11. losslessness of mixtral-8x22b in float32 (1 layer, dense fallback,
-   unit-scale attention), against plain greedy decoding as in phase 6;
+   unit-scale attention; its experts on ``moe_experts``' float32 kernel),
+   against plain greedy decoding as in phase 6; then ``moe_experts`` at
+   Trinity-Mini's widths (d 2048, ff 1024, 128 experts, top-8; 1, 95 and
+   640 tokens in bf16, 95 in float32) against its plain version, timed
+   beside its bound;
 12. ``flash_attention``: check shapes (bf16 on the tensor-core kernel,
    float32 on the CUDA-core one; D 64/96/128, GQA groups 1/6/7/8, B 1 and
    2, windows of 7 and 32 keys and wider, S below one 64-key tile and not
@@ -212,7 +219,8 @@ from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.kernels import (autotune, build, cases,  # noqa: E402
                                  decode_attention, flash_attention,
                                  fused_decode, fused_verify, ops,
-                                 paged_attention, quant, verify_attention)
+                                 moe_experts, paged_attention, quant,
+                                 verify_attention)
 from repro_torch.kernels.ref import tree_mask_term  # noqa: E402
 from repro_torch.launch import mesh, train  # noqa: E402
 from repro_torch.launch.serve import build_fleet, make_engine  # noqa: E402
@@ -995,7 +1003,7 @@ class Tap:
         size = a["q"].numel() * lst.numel()
         if size > self.size:
             self.size = size
-            self.best = {n: None if t is None else t.clone()
+            self.best = {n: t.clone() if isinstance(t, torch.Tensor) else t
                          for n, t in a.items()}
         return self.fn(*args, **kw)
 
@@ -1005,6 +1013,83 @@ class Tap:
 
     def __exit__(self, *exc):
         setattr(self.module, self.attr, self.fn)
+
+
+class MoeTap(Tap):
+    """Tap of ``ops.moe_experts``: keeps its call of the most tokens (the
+    expert weights by reference, the rest copied)."""
+
+    def __call__(self, x, ids, weights, w_gate, w_up, w_down):
+        if x.shape[0] > self.size:
+            self.size = x.shape[0]
+            self.best = dict(x=x.clone(), ids=ids.clone(),
+                             weights=weights.clone(), w_gate=w_gate,
+                             w_up=w_up, w_down=w_down)
+        return self.fn(x, ids, weights, w_gate, w_up, w_down)
+
+
+def moe_work(a):
+    """Bytes and operations of one ``moe_experts`` call: the weights of
+    the experts its ids touch, once, plus x, ids, weights and the output;
+    2 x 3 d ff operations a (token, choice) pair."""
+    E, d, ff = a["w_gate"].shape
+    el = a["x"].element_size()
+    touched = int(torch.unique(a["ids"]).numel())
+    nbytes = (3 * touched * d * ff * el + 2 * a["x"].numel() * el
+              + a["ids"].numel() * (a["ids"].element_size() + 4))
+    return nbytes, 6 * d * ff * a["ids"].numel()
+
+
+def moe_inputs(T, d, ff, E, k, dtype, seed):
+    """Random ``moe_experts`` inputs on the card: each token's k distinct
+    experts, weights in (0, 1), matrices of std 1 / sqrt(input width)."""
+    g = torch.Generator().manual_seed(seed)
+    gc = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mat(*shape):
+        return (torch.randn(*shape, generator=gc, device="cuda")
+                / math.sqrt(shape[1])).to(dtype)
+    ids = torch.stack([torch.randperm(E, generator=g)[:k] for _ in range(T)])
+    return dict(x=torch.randn(T, d, generator=gc, device="cuda").to(dtype),
+                ids=ids.cuda(), weights=torch.rand(T, k, generator=g).cuda(),
+                w_gate=mat(E, d, ff), w_up=mat(E, d, ff),
+                w_down=mat(E, ff, d))
+
+
+def check_moe(label, a, timer, report):
+    """``moe_experts`` against its plain version on one input, timed
+    beside its bound (the plain version walks its plan on the host, a sync
+    a call, so the timer cannot run ahead of it: not timed); one ``check``
+    line; raises if they disagree."""
+    before = build.LAUNCHES[moe_experts.NAME]
+    out = moe_experts.moe_experts(**a)
+    torch.cuda.synchronize()
+    check(build.LAUNCHES[moe_experts.NAME] == before + 1,
+          "moe_experts did not launch")
+    ref = moe_experts.moe_experts_plain(**a)
+    err = (out.float() - ref.float()).abs().max().item()
+    ref_max = ref.float().abs().max().item()
+    # both sum float32 products in other orders and round the SwiGLU and
+    # the output to bf16: an ulp or two of the largest output (2^-8 each);
+    # a wrong expert, row or weight misses by the output's own size
+    tol = (2.0 ** -6 if out.dtype == torch.bfloat16 else 1e-4) * max(
+        1.0, ref_max)
+    ok = bool(torch.isfinite(out.float()).all()) and err <= tol
+    nbytes, ops_ = moe_work(a)
+    b_ms, b_by = bound(nbytes, ops_, a["x"].dtype)
+    ms = timer(lambda: moe_experts.moe_experts(**a))
+    build.LAUNCHES[moe_experts.NAME] = before
+    E, d, ff = a["w_gate"].shape
+    shape = dict(tokens=a["x"].shape[0], d=d, ff=ff, experts=E,
+                 top_k=a["ids"].shape[1], dtype=str(a["x"].dtype)[6:])
+    log(f"check moe_experts [{label}] shape={json.dumps(shape)} "
+        f"max_abs_err={err:.3g} max|plain|={ref_max:.3g} tol={tol:.3g} "
+        f"ms={ms:.4f} bound_ms={b_ms:.5f} ({b_by}, "
+        f"share {100 * b_ms / ms:.2f}%) {'ok' if ok else 'FAIL'}")
+    report["checks"].append(dict(
+        kernel=moe_experts.NAME, case=label, shape=shape, max_abs_err=err,
+        ref_max=ref_max, tol=tol, ok=ok, ms=ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops_))
+    check(ok, f"moe_experts [{label}] disagrees with its plain version")
 
 
 def phase_main_path(report):
@@ -1254,22 +1339,28 @@ def layer0_qkv(llm, S, seed):
                 window=cfg.sliding_window, model=cfg.name)
 
 
-def phase_moe_window_path(report):
+def phase_moe_window_path(report, timer):
     """mixtral-8x22b at published widths, depth cut to ``MIXTRAL_LAYERS``:
     its window sends the engine to the dense layout (plain windowed
-    attention, as the reference's path; no kernel of the repo runs)."""
+    attention, as the reference's path); its experts run dropless through
+    ``moe_experts``, required in every timed run and held against its
+    plain version on the path's largest call."""
     llm, ssms = full_zoo("bfloat16", MIXTRAL_LAYERS,
                          llm_cfg=registry.get("mixtral-8x22b"))
     log("MoE window path: " + describe(llm, ssms, "bf16 weights; the "
                                        "window forces the dense layout"))
-    serve(llm, ssms, 6, 0.3, capacity=6)           # untimed
-    line = timed_runs(llm, ssms, capacity=6)
+    with MoeTap(ops, "moe_experts") as tap:
+        serve(llm, ssms, 6, 0.3, capacity=6)       # untimed
+    line = timed_runs(llm, ssms, ("moe_experts",), capacity=6)
     check(line["kv_layout"] == "dense", "mixtral did not go dense")
     check(line["finished"] == 6, f"{line['finished']} of 6 finished")
     line.update(depth_cut=f"{MIXTRAL_LAYERS} of 56 layers",
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     log("MoE window path stats (mixtral; warm) " + json.dumps(line))
     report["moe_window_path"] = line
+    check_moe("mixtral-8x22b window path, largest call", tap.best, timer,
+              report)
+    del tap
     # flash_attention's windowed input: S = 6144 > the 4096 window
     qkv = layer0_qkv(llm, 6144, seed=7)
     del llm, ssms
@@ -1288,9 +1379,10 @@ def phase_moe_paged_path(report, timer):
                                       "bf16 KV, fused kernels"))
     taps = {"fused_paged_verify": Tap(ops, "fused_paged_verify"),
             "fused_paged_decode": Tap(ops, "fused_paged_decode")}
-    with taps["fused_paged_verify"], taps["fused_paged_decode"]:
+    with taps["fused_paged_verify"], taps["fused_paged_decode"], \
+            MoeTap(ops, "moe_experts") as moe_tap:
         serve(llm, ssms, 6, 0.3, capacity=6)       # untimed
-    line = timed_runs(llm, ssms, PAGED, capacity=6)
+    line = timed_runs(llm, ssms, PAGED + ["moe_experts"], capacity=6)
     check(line["kv_layout"] == "paged", "dbrx did not run paged")
     check(line["finished"] == 6, f"{line['finished']} of 6 finished")
     line.update(depth_cut=f"{DBRX_LAYERS} of 40 layers",
@@ -1298,7 +1390,9 @@ def phase_moe_paged_path(report, timer):
     log("MoE paged path stats (dbrx; warm; launches from the first timed "
         "run) " + json.dumps(line))
     report["moe_paged_path"] = line
-    del llm, ssms
+    check_moe("dbrx-132b paged path, largest call", moe_tap.best, timer,
+              report)
+    del llm, ssms, moe_tap
     torch.cuda.empty_cache()
     run_checks([(n, "dbrx-132b paged path, largest call", t.best)
                 for n, t in taps.items()], timer, report)
@@ -1319,6 +1413,23 @@ def phase_moe_lossless(report):
     report["moe_lossless"] = run
     del llm, ssms
     torch.cuda.empty_cache()
+
+
+# Trinity-Mini's routed experts: (tokens, dtype) a decode step, a batch-1
+# admission of ~95 tokens, a 640-token packed verify; float32
+TRINITY_MOE = dict(d=2048, ff=1024, E=128, k=8)
+TRINITY_MOE_CASES = [(1, torch.bfloat16), (95, torch.bfloat16),
+                     (640, torch.bfloat16), (95, torch.float32)]
+
+
+def phase_moe_experts(report, timer):
+    """``moe_experts`` at Trinity-Mini's widths against its plain
+    version, timed beside its bound."""
+    for i, (n, dt) in enumerate(TRINITY_MOE_CASES):
+        a = moe_inputs(n, **TRINITY_MOE, dtype=dt, seed=31 + i)
+        check_moe(f"trinity-mini widths, {n} tokens", a, timer, report)
+        del a
+        torch.cuda.empty_cache()
 
 
 def phase_flash(report, timer, path_inputs):
@@ -2214,9 +2325,10 @@ def main():
     ops_launches, ops_inputs = timed(
         phase_ops_path, report, captured["fused_paged_verify"],
         captured["fused_paged_decode"], dense_grid)
-    mixtral_qkv = timed(phase_moe_window_path, report)
+    mixtral_qkv = timed(phase_moe_window_path, report, timer)
     timed(phase_moe_paged_path, report, timer)
     timed(phase_moe_lossless, report)
+    timed(phase_moe_experts, report, timer)
     flash_launches = timed(phase_flash, report, timer,
                            [mixtral_qkv, llama_qkv])
     timed(phase_zoo, report)

@@ -142,13 +142,16 @@ def make_attn_override(gather_b, gather_s, valid, q_rows):
     cache row).
 
     Attention: ``kernels.ops.verify_attention`` on the flattened views for
-    full-attention models; a sliding-window model keeps the reference's
-    ``layers.attention(..., window=w)`` (the kernel has no window term)."""
+    full-attention layers; a layer with a window (the model-wide
+    ``sliding_window`` or its entry of ``layer_windows``) keeps the
+    reference's ``layers.attention(..., window=w)`` (that kernel has no
+    window term)."""
     host = (np.asarray(gather_b, np.int64), np.asarray(gather_s, np.int64),
             np.asarray(valid, bool), np.asarray(q_rows, np.int64))
     dev = {}
 
-    def override(q, k_new, v_new, positions, segments, kv_cache, cfg, opts):
+    def override(q, k_new, v_new, positions, segments, kv_cache, cfg, opts,
+                 window=0):
         # q, k_new, v_new: (1, Tq, H/Kh, hd); positions/segments: (1, Tq)
         if "plan" not in dev:
             gb, gs, ok, qr = (_to_device(a, q.device) for a in host)
@@ -163,10 +166,10 @@ def make_attn_override(gather_b, gather_s, valid, q_rows):
         vv = torch.cat([pv, v_new], dim=1)
         kpos = torch.cat([ppos, positions], dim=1)
         kseg = torch.cat([pseg, segments], dim=1)
-        if cfg.sliding_window:
+        if window:
             o = attention(q, kk, vv, q_positions=positions, kv_positions=kpos,
                           q_segments=segments, kv_segments=kseg,
-                          window=cfg.sliding_window, q_block=opts.q_block)
+                          window=window, q_block=opts.q_block)
         else:
             o = ops.verify_attention(q[0], kk[0], vv[0], segments[0],
                                      positions[0], kseg[0], kpos[0])[None]

@@ -10,7 +10,7 @@ at once, and waits for them.
 
 The wrappers (``fused_verify.py``, ``fused_decode.py``,
 ``verify_attention.py``, ``decode_attention.py``, ``paged_attention.py``,
-``flash_attention.py``) share the argument checks below and count their
+``flash_attention.py``, ``moe_experts.py``) share the argument checks below and count their
 launches in :data:`LAUNCHES`.
 """
 
@@ -33,7 +33,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("fused_verify", "fused_decode", "verify_attention",
-           "decode_attention", "paged_attention", "flash_attention")
+           "decode_attention", "paged_attention", "flash_attention",
+           "moe_experts")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

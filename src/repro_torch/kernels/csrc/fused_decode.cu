@@ -53,7 +53,7 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ ks,
                         const float* __restrict__ vs, QT* __restrict__ out,
                         int T, int H, int Kh, int D, int bs, int NB, int BQ,
-                        float scale) {
+                        float scale, unsigned wlim) {
   extern __shared__ float smem_raw[];
   const int G = H / Kh;
   const int b = blockIdx.x;
@@ -103,7 +103,8 @@ __global__ void __launch_bounds__(kThreads)
         sm.node[j] = -1;
       }
       __syncthreads();
-      attend_tile<false>(sm, n, rows, D, m, l, acc, rseg, rpos, ranc);
+      attend_tile<false>(sm, n, rows, D, m, l, acc, rseg, rpos, ranc,
+                         wlim);
       __syncthreads();
     }
   }
@@ -136,7 +137,7 @@ __global__ void __launch_bounds__(kThreads)
                               const float* __restrict__ vs,
                               QT* __restrict__ out, int T, int H, int Kh,
                               int D, int bs, int NB, int BQ, int wpt,
-                              int stages, float scale) {
+                              int stages, float scale, unsigned wlim) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int wlast[kWarps];
   const int G = H / Kh;
@@ -178,6 +179,7 @@ __global__ void __launch_bounds__(kThreads)
     w.pos[rr] = q_pos[t];
     w.anc[rr] = -1;
   }
+  w.wlim = wlim;
   last = warp_max_int(last);
   if (lane == 0) wlast[warp] = last;
   __syncthreads();  // the table, the warps' last live entries
@@ -225,7 +227,7 @@ static int launch(const void* q, const void* kp, const void* vp,
                   const int* q_pos, const int* block_tables, const float* ks,
                   const float* vs, void* out, int B, int T, int H, int Kh,
                   int D, int bs, int NB, int BQ, int wpt, int stages,
-                  float scale, cudaStream_t stream) {
+                  float scale, unsigned wlim, cudaStream_t stream) {
   const int G = H / Kh;
   dim3 grid(B, Kh, (T + BQ - 1) / BQ);
   if (wpt == 0) {
@@ -234,7 +236,7 @@ static int launch(const void* q, const void* kp, const void* vp,
         static_cast<const QT*>(q), static_cast<const KT*>(kp),
         static_cast<const KT*>(vp), pool_seg, pool_pos, q_seg, q_pos,
         block_tables, ks, vs, static_cast<QT*>(out), T, H, Kh, D, bs, NB,
-        BQ, scale);
+        BQ, scale, wlim);
     return 0;
   }
   const size_t smem =
@@ -253,7 +255,7 @@ static int launch(const void* q, const void* kp, const void* vp,
       static_cast<const QT*>(q), static_cast<const KT*>(kp),
       static_cast<const KT*>(vp), pool_seg, pool_pos, q_seg, q_pos,
       block_tables, ks, vs, static_cast<QT*>(out), T, H, Kh, D, bs, NB, BQ,
-      wpt, stages, scale);
+      wpt, stages, scale, wlim);
   return 0;
 }
 
@@ -264,10 +266,10 @@ static int dispatch_kv(int kv_dtype, const void* q, const void* kp,
                        const int* block_tables, const float* ks,
                        const float* vs, void* out, int B, int T, int H, int Kh,
                        int D, int bs, int NB, int BQ, int wpt, int stages,
-                       float scale, cudaStream_t stream) {
+                       float scale, unsigned wlim, cudaStream_t stream) {
 #define SPIN_ARGS                                                           \
   q, kp, vp, pool_seg, pool_pos, q_seg, q_pos, block_tables, ks, vs, out, B, \
-      T, H, Kh, D, bs, NB, BQ, wpt, stages, scale, stream
+      T, H, Kh, D, bs, NB, BQ, wpt, stages, scale, wlim, stream
   switch (kv_dtype) {
     case kF32: return launch<QT, float>(SPIN_ARGS);
     case kBF16: return launch<QT, __nv_bfloat16>(SPIN_ARGS);
@@ -285,35 +287,37 @@ static int dispatch_kv(int kv_dtype, const void* q, const void* kp,
 // (N, bs, Kh) f32 or null; out like q.  BQ query tokens per CTA; wpt = 0:
 // the row layout (fused_decode_kernel); wpt = 1, 2 or 4: the split layout
 // with kWarps / wpt teams of `stages` tile buffers each (BQ * G rows, at
-// most four per warp).  Returns cudaGetLastError() after the launch (0 =
+// most four per warp).  window > 0 masks slots at or before q_pos - window
+// as well (0: none).  Returns cudaGetLastError() after the launch (0 =
 // launched).
 extern "C" int spin_fused_paged_decode(
     const void* q, const void* k_pool, const void* v_pool, const int* pool_seg,
     const int* pool_pos, const int* q_seg, const int* q_pos,
     const int* block_tables, const float* k_scale, const float* v_scale,
     void* out, int B, int T, int H, int Kh, int D, int bs, int NB, int BQ,
-    int wpt, int stages, int q_dtype, int kv_dtype, float scale,
+    int wpt, int stages, int q_dtype, int kv_dtype, int window, float scale,
     void* stream) {
   using namespace spin;
   if (B <= 0 || T <= 0 || Kh <= 0 || H % Kh != 0 || D <= 0 || D > kMaxD ||
-      BQ <= 0 || BQ * (H / Kh) > kMaxRows || bs <= 0 || NB < 0)
+      BQ <= 0 || BQ * (H / Kh) > kMaxRows || bs <= 0 || NB < 0 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (wpt != 0 && ((wpt != 1 && wpt != 2 && wpt != kWarps) ||
                    BQ * (H / Kh) > kRowsPerWarp * wpt || stages < 1 ||
                    stages > pipe::kMaxStages))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned wlim = window_limit(window);
   int rc;
   if (q_dtype == kF32)
     rc = dispatch_kv<float>(kv_dtype, q, k_pool, v_pool, pool_seg, pool_pos,
                             q_seg, q_pos, block_tables, k_scale, v_scale, out,
                             B, T, H, Kh, D, bs, NB, BQ, wpt, stages, scale,
-                            st);
+                            wlim, st);
   else if (q_dtype == kBF16)
     rc = dispatch_kv<__nv_bfloat16>(kv_dtype, q, k_pool, v_pool, pool_seg,
                                     pool_pos, q_seg, q_pos, block_tables,
                                     k_scale, v_scale, out, B, T, H, Kh, D, bs,
-                                    NB, BQ, wpt, stages, scale, st);
+                                    NB, BQ, wpt, stages, scale, wlim, st);
   else
     rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;

@@ -95,12 +95,12 @@ extern "C" int spin_paged_verify_attention(
     const float* k_scale, const float* v_scale, float* pm, float* pl,
     float* pacc, int* counters, void* out, int Tq, int H, int Kh, int D,
     int bs, int M, int tokens, int span, int chunks, int cap, int mma,
-    int heads, int wpt, int stages, int q_dtype, int kv_dtype, float scale,
-    void* stream) {
+    int heads, int wpt, int stages, int q_dtype, int kv_dtype, int window,
+    float scale, void* stream) {
   return spin::verify_runs(q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
                            q_pos, q_anc, block_ids, block_owner, block_node,
                            k_scale, v_scale, pm, pl, pacc, counters, out, Tq,
                            H, Kh, D, bs, M, tokens, span, chunks, cap, mma,
-                           heads, wpt, stages, q_dtype, kv_dtype, scale,
-                           stream);
+                           heads, wpt, stages, q_dtype, kv_dtype, window,
+                           scale, stream);
 }

@@ -36,6 +36,14 @@ constexpr int kRowsPerWarp = 4;
 constexpr int kMaxRows = kWarps * kRowsPerWarp;  // 16 query rows per CTA
 constexpr int kDimPerLane = 4;
 constexpr int kMaxD = 32 * kDimPerLane;          // 128
+// A slot at position p is attendable from a query at position q iff
+// unsigned(q - p) < the limit: kNoWindow is p <= q alone (positions are
+// non-negative ints, so q - p < 0 reads at least 2^31); a window w > 0 adds
+// p > q - w (the reference's kv_pos > q_pos - window) at no extra cost.
+constexpr unsigned kNoWindow = 0x80000000u;
+__host__ __device__ inline unsigned window_limit(int window) {
+  return window > 0 ? static_cast<unsigned>(window) : kNoWindow;
+}
 
 // dtype codes shared with the Python wrappers
 enum DType { kF32 = 0, kBF16 = 1, kI8 = 2, kFP8 = 3 };
@@ -270,7 +278,7 @@ __device__ __forceinline__ void attend_tile(
     const Smem& sm, int n, int rows, int D, float (&m)[kRowsPerWarp],
     float (&l)[kRowsPerWarp], float (&acc)[kRowsPerWarp][kDimPerLane],
     const int (&rseg)[kRowsPerWarp], const int (&rpos)[kRowsPerWarp],
-    const int (&ranc)[kRowsPerWarp]) {
+    const int (&ranc)[kRowsPerWarp], unsigned wlim = kNoWindow) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -281,7 +289,8 @@ __device__ __forceinline__ void attend_tile(
       float s = kNeg;
       if (lane < n) {
         const int kseg = sm.seg[lane];
-        ok = kseg >= 0 && kseg == rseg[rr] && sm.pos[lane] <= rpos[rr];
+        ok = kseg >= 0 && kseg == rseg[rr] &&
+             static_cast<unsigned>(rpos[rr] - sm.pos[lane]) < wlim;
         if (kTree && ok) {
           const int nd = sm.node[lane];
           ok = nd == -1 ||

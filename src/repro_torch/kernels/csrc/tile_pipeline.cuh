@@ -346,11 +346,14 @@ __device__ __forceinline__ void issue_tile(const Stage& st, const Pool<KT>& p,
 
 // Per-row state of a warp: rows k0 + wpt * rr, rr < RW (RW = 1 or
 // kRowsPerWarp; compiled per RW, so a CTA of one row per warp runs the
-// short code).
+// short code).  wlim: a tagged slot is attendable iff unsigned(row pos -
+// slot pos) < wlim, kNoWindow for the causal term alone (pos <= row pos),
+// the window w (pos > row pos - w as well) else (window_limit).
 template <int RW>
 struct Rows {
   float m[RW], l[RW], acc[RW][kDimPerLane];
   int seg[RW], pos[RW], anc[RW];
+  unsigned wlim = kNoWindow;
 };
 
 // Online-softmax update of this warp's rows with the tile in stage st.
@@ -380,7 +383,8 @@ __device__ __forceinline__ void score_tile(const Stage& st, const float* sq,
   for (int rr = 0; rr < RW; ++rr) {
     const int r = k0 + wpt * rr;
     bool o = r < R && kseg >= 0 &&
-             (!kTags || (kseg == w.seg[rr] && kpos <= w.pos[rr]));
+             (!kTags || (kseg == w.seg[rr] &&
+                         static_cast<unsigned>(w.pos[rr] - kpos) < w.wlim));
     if (kTree && o)
       o = knode == -1 ||
           (knode >= 0 &&

@@ -93,6 +93,7 @@ struct Args {
   void* out;
   int Tq, H, Kh, D, bs, M, tokens, span, chunks, cap, heads, wpt, stages;
   float scale;
+  unsigned wlim;  // window_limit(window): the causal and window terms
 };
 
 // Shared memory.  Both paths: the chunk's list (block, and entry for trees
@@ -599,7 +600,8 @@ __device__ __forceinline__ void mma_tile(const Args& a, const Tile& tl,
               const float sc = kQuant ? sl * ksc[hh * TS + key] : sl;
 #pragma unroll
               for (int i2 = 0; i2 < 2; ++i2) {
-                bool ok = rok[i2] && live && kpos <= qpos[i2];
+                bool ok = rok[i2] && live &&
+                          static_cast<unsigned>(qpos[i2] - kpos) < a.wlim;
                 if (kTree && ok)
                   ok = node == -1 ||
                        (node >= 0 &&
@@ -823,6 +825,7 @@ __device__ __forceinline__ void scalar_tile(const Args& a, const Tile& tl,
     w.pos[rr] = a.q_pos[t];
     w.anc[rr] = kTree ? a.q_anc[t] : -1;
   }
+  w.wlim = a.wlim;
   pipe::Pool<KT> p;
   p.k = static_cast<const KT*>(a.kp);
   p.v = static_cast<const KT*>(a.vp);
@@ -943,7 +946,8 @@ static int launch(const Args& a, bool mma, cudaStream_t stream) {
 // q (Tq, H, D) f32/bf16; pools (N, bs, Kh, D) f32/bf16/int8/fp8;
 // pool_seg/pool_pos (N, bs); q_seg/q_pos (Tq,); q_anc (Tq,) or null;
 // block_ids/block_owner (M,); block_node (M, bs) or null; ks/vs (N, bs, Kh)
-// f32 or null; out like q.  The plan (kernels/paged_attention.py
+// f32 or null; out like q; window > 0 masks slots at or before q_pos -
+// window as well (0: none).  The plan (kernels/paged_attention.py
 // verify_plan): `tokens` query tokens a tile at most, `span` tokens a CTA
 // looks at for tiles (the grid's x is ceil(Tq / span)), `heads` kv heads a
 // CTA (the grid's y is Kh / heads; tokens x G x heads rows: kMmaRows on
@@ -965,8 +969,8 @@ inline int verify_runs(const void* q, const void* k_pool, const void* v_pool,
                        float* pacc, int* counters, void* out, int Tq, int H,
                        int Kh, int D, int bs, int M, int tokens, int span,
                        int chunks, int cap, int mma, int heads, int wpt,
-                       int stages, int q_dtype, int kv_dtype, float scale,
-                       void* stream) {
+                       int stages, int q_dtype, int kv_dtype, int window,
+                       float scale, void* stream) {
   const int G = Kh > 0 ? H / Kh : 0;
   const int R = tokens * G * heads;
   const bool tc = mma != 0;
@@ -979,7 +983,7 @@ inline int verify_runs(const void* q, const void* k_pool, const void* v_pool,
                 (M < vseg::kBatch ? M : vseg::kBatch) &&
             (chunks == 1 || (pm != nullptr && pl != nullptr &&
                              pacc != nullptr && counters != nullptr)) &&
-            (q_anc == nullptr) == (block_node == nullptr);
+            (q_anc == nullptr) == (block_node == nullptr) && window >= 0;
   if (tc) {
     ok = ok && q_dtype == kBF16 && kv_dtype != kF32 && D % 16 == 0 &&
          R <= vseg::kMmaRows && tokens == vseg::kMmaRows / (G * heads) &&
@@ -995,7 +999,7 @@ inline int verify_runs(const void* q, const void* k_pool, const void* v_pool,
                      k_scale,  v_scale,  pm,      pl,       pacc,     counters,
                      out,      Tq,       H,       Kh,       D,        bs,
                      M,        tokens,   span,    chunks,   cap,      heads,
-                     wpt,      stages,   scale};
+                     wpt,      stages,   scale,   window_limit(window)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = 0;
 #define SPIN_VERIFY(QT, KT) rc = vseg::launch<QT, KT>(a, tc, st)

@@ -67,13 +67,14 @@ def decode_plan(B: int, T: int, G: int, Kh: int, NB: int, bs: int, D: int,
 def _c_fn():
     fn = build.load("fused_decode").spin_fused_paged_decode
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 11 + [i] * 12 + [ctypes.c_float, p]
+    fn.argtypes = [p] * 11 + [i] * 13 + [ctypes.c_float, p]
     fn.restype = i
     return fn
 
 
 def fused_paged_decode(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
-                       block_tables, k_scale=None, v_scale=None, config=None):
+                       block_tables, k_scale=None, v_scale=None, config=None,
+                       window=0):
     """Multi-token paged decode.
 
     q: (B, T, H, D); pools: (N, bs, Kh, D); pool_seg/pool_pos: (N, bs)
@@ -82,12 +83,13 @@ def fused_paged_decode(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
     block_tables: (B, NB) physical block per logical block, -1 =
     unallocated (allocated as a prefix); optional (N, bs, Kh) float32 scales
     for int8/fp8 pools; ``config``: a tuned ``autotune.FusedConfig`` over
-    :func:`decode_plan` (the plain version ignores it).  Returns (B, T, H,
-    D) in q's dtype; a row with no blocks gives zeros."""
+    :func:`decode_plan` (the plain version ignores it); ``window`` > 0
+    masks the slots at or before q_pos - window too (0: none).  Returns
+    (B, T, H, D) in q's dtype; a row with no blocks gives zeros."""
     if q.device.type == "cpu":
         return fused_paged_decode_plain(
             q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
-            block_tables, k_scale, v_scale)
+            block_tables, k_scale, v_scale, window)
     B, T, H, D = q.shape
     NB = block_tables.shape[1]
     q_code, kv_code = build.check_pools(q, k_pool, v_pool, pool_seg,
@@ -105,7 +107,8 @@ def fused_paged_decode(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
         ptr(q), ptr(k_pool), ptr(v_pool), ptr(pool_seg), ptr(pool_pos),
         ptr(q_seg), ptr(q_pos), ptr(block_tables), ptr(k_scale),
         ptr(v_scale), ptr(out), B, T, H, Kh, D, bs, NB, bq, wpt, stages,
-        q_code, kv_code, 1.0 / math.sqrt(D), build.stream_of(q))
+        q_code, kv_code, int(window), 1.0 / math.sqrt(D),
+        build.stream_of(q))
     build.raise_on(rc, NAME)
     build.LAUNCHES[NAME] += 1
     return out

@@ -24,7 +24,7 @@ fused_paged_verify_plain = ref.paged_verify_ref
 
 def fused_paged_verify(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
                        block_ids, block_owner, q_anc=None, block_node=None,
-                       k_scale=None, v_scale=None, config=None):
+                       k_scale=None, v_scale=None, config=None, window=0):
     """Single-launch packed verification.
 
     q: (Tq, H, D); pools: (N, bs, Kh, D); pool_seg/pool_pos: (N, bs);
@@ -33,7 +33,8 @@ def fused_paged_verify(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
     topology q_anc (Tq,) / block_node (M, bs), indexed by gathered entry m;
     optional (N, bs, Kh) float32 scales for int8/fp8 pools; ``config``: a
     tuned ``autotune.FusedConfig`` over ``paged_attention.verify_plan`` (the
-    plain version ignores it).  Returns (Tq, H, D) in q's dtype.  On the
+    plain version ignores it); ``window`` > 0 masks the slots at or before
+    q_pos - window too (0: none).  Returns (Tq, H, D) in q's dtype.  On the
     card: one launch over (segment tile, kv head group, chunk), each CTA
     streaming its segment's blocks once; where the plan splits (long lists
     a query token), float32 partials merged by each tile's last chunk in
@@ -41,8 +42,8 @@ def fused_paged_verify(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
     if q.device.type == "cpu":
         return fused_paged_verify_plain(
             q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos, block_ids,
-            block_owner, q_anc, block_node, k_scale, v_scale)
+            block_owner, q_anc, block_node, k_scale, v_scale, window)
     return paged_attention.launch_verify(
         "fused_verify", NAME, q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
         q_pos, block_ids, block_owner, q_anc, block_node, k_scale, v_scale,
-        config)
+        config, window)

@@ -212,7 +212,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
 
 def paged_verify_attention(q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
                            q_pos, block_ids, block_owner, q_anc=None,
-                           block_node=None, k_scale=None, v_scale=None):
+                           block_node=None, k_scale=None, v_scale=None,
+                           window=0):
     """Packed verification over live pool blocks; arguments and result as
     ``fused_verify.fused_paged_verify``.  On the card: the same launch
     (:func:`launch_verify`, :func:`verify_plan`) through this source's own
@@ -220,15 +221,16 @@ def paged_verify_attention(q, k_pool, v_pool, pool_seg, pool_pos, q_seg,
     if q.device.type == "cpu":
         return paged_verify_attention_plain(
             q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos, block_ids,
-            block_owner, q_anc, block_node, k_scale, v_scale)
+            block_owner, q_anc, block_node, k_scale, v_scale, window)
     return launch_verify("paged_attention", VERIFY, q, k_pool, v_pool,
                          pool_seg, pool_pos, q_seg, q_pos, block_ids,
-                         block_owner, q_anc, block_node, k_scale, v_scale)
+                         block_owner, q_anc, block_node, k_scale, v_scale,
+                         window=window)
 
 
 def launch_verify(source, name, q, k_pool, v_pool, pool_seg, pool_pos,
                   q_seg, q_pos, block_ids, block_owner, q_anc, block_node,
-                  k_scale, v_scale, config=None):
+                  k_scale, v_scale, config=None, window=0):
     """One launch of the packed verify (``csrc/verify_runs.cuh``) through
     entry ``spin_<name>`` of ``csrc/<source>.cu``: the argument checks,
     :func:`verify_plan`, and with more than one chunk the float32 partials
@@ -240,7 +242,8 @@ def launch_verify(source, name, q, k_pool, v_pool, pool_seg, pool_pos,
     queries need not be contiguous (each run of tokens of one segment is
     tiled on its own).
     ``config`` (a tuned ``autotune.FusedConfig``, only from
-    ``fused_paged_verify``) is applied by :func:`verify_plan`."""
+    ``fused_paged_verify``) is applied by :func:`verify_plan`; ``window``
+    (0: none) masks slots at or before q_pos - window."""
     if (q_anc is None) != (block_node is None):
         raise ValueError("q_anc and block_node come together")
     Tq, H, D = q.shape
@@ -263,13 +266,13 @@ def launch_verify(source, name, q, k_pool, v_pool, pool_seg, pool_pos,
                                                q.device, stream)
     out = torch.empty_like(q)
     ptr = build.ptr
-    rc = _c_fn(source, name, 18, 16)(
+    rc = _c_fn(source, name, 18, 17)(
         ptr(q), ptr(k_pool), ptr(v_pool), ptr(pool_seg), ptr(pool_pos),
         ptr(q_seg), ptr(q_pos), ptr(q_anc), ptr(block_ids), ptr(block_owner),
         ptr(block_node), ptr(k_scale), ptr(v_scale), ptr(pm), ptr(pl),
         ptr(pacc), ptr(counters), ptr(out), Tq, H, Kh, D, bs, M,
         plan.tokens, plan.span, plan.chunks, plan.cap, int(plan.mma),
-        plan.heads, plan.wpt, plan.stages, q_code, kv_code,
+        plan.heads, plan.wpt, plan.stages, q_code, kv_code, int(window),
         1.0 / math.sqrt(D), stream)
     build.raise_on(rc, name)
     build.LAUNCHES[name] += 1

@@ -39,12 +39,13 @@ def tree_mask_term(q_anc, kv_node):
 
 
 def verify_attention_ref(q, k, v, q_seg, q_pos, kv_seg, kv_pos,
-                         q_anc=None, kv_node=None):
+                         q_anc=None, kv_node=None, window: int = 0):
     """SPIN packed verification attention — direct Eq. (13).
 
     q: (Tq, H, D); k, v: (Tkv, Kh, D); segs/pos: int32 1-D.  Causal
     masking ``kv_pos <= q_pos``, empty slots ``seg == -1``; optional tree
-    term.  Rows with no valid key give zeros."""
+    term; ``window`` > 0 masks ``kv_pos <= q_pos - window`` too.  Rows
+    with no valid key give zeros."""
     Tq, H, Dh = q.shape
     Kh = k.shape[1]
     G = H // Kh
@@ -52,6 +53,8 @@ def verify_attention_ref(q, k, v, q_seg, q_pos, kv_seg, kv_pos,
     s = torch.einsum("qkgd,skd->qkgs", qf, k.float()) / math.sqrt(Dh)
     mask = ((q_seg[:, None] == kv_seg[None, :]) & (kv_seg[None, :] >= 0)
             & (kv_pos[None, :] <= q_pos[:, None]))
+    if window:
+        mask &= kv_pos[None, :] > q_pos[:, None] - window
     if kv_node is not None:
         mask &= tree_mask_term(q_anc[:, None], kv_node[None, :])
     s = torch.where(mask[:, None, None, :], s, NEG)
@@ -65,7 +68,7 @@ def verify_attention_ref(q, k, v, q_seg, q_pos, kv_seg, kv_pos,
 
 def paged_verify_ref(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
                      block_ids, block_owner, q_anc=None, block_node=None,
-                     k_scale=None, v_scale=None):
+                     k_scale=None, v_scale=None, window: int = 0):
     """Gather the live blocks into a flat packed view, then Eq. (13).
     ``block_node`` (M, bs) carries per-slot tree-node tags aligned with
     ``block_ids``; optional (N, bs, Kh) scale sidecars dequantize."""
@@ -79,13 +82,15 @@ def paged_verify_ref(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
     kv_seg = torch.where((slot_seg >= 0) & (owner >= 0), owner, -1)
     kv_node = None if block_node is None else block_node.reshape(-1)
     return verify_attention_ref(q, k, v, q_seg, q_pos, kv_seg, kv_pos,
-                                q_anc, kv_node)
+                                q_anc, kv_node, window)
 
 
 def paged_seq_decode_ref(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
-                         block_tables, k_scale=None, v_scale=None):
+                         block_tables, k_scale=None, v_scale=None,
+                         window: int = 0):
     """Gather each row's block list dense, then segment/position-masked
-    attention.  q: (B, T, H, D); block_tables: (B, NB), -1 = unallocated;
+    attention (``window`` > 0: slots at or before q_pos - window masked
+    too).  q: (B, T, H, D); block_tables: (B, NB), -1 = unallocated;
     q_seg -1 = padding query (zero output)."""
     B, T, H, Dh = q.shape
     bs, Kh = k_pool.shape[1], k_pool.shape[2]
@@ -102,6 +107,8 @@ def paged_seq_decode_ref(q, k_pool, v_pool, pool_seg, pool_pos, q_seg, q_pos,
     mask = ((q_seg[:, :, None] == kv_seg[:, None, :])
             & (kv_seg[:, None, :] >= 0)
             & (kv_pos[:, None, :] <= q_pos[:, :, None]))
+    if window:
+        mask &= kv_pos[:, None, :] > q_pos[:, :, None] - window
     s = torch.where(mask[:, :, None, None, :], s, NEG)
     m = torch.clamp(torch.amax(s, dim=-1, keepdim=True), min=-1e29)
     p = torch.where(mask[:, :, None, None, :], torch.exp(s - m), 0.0)

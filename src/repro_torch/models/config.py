@@ -59,6 +59,13 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    # "softmax": top-k of the softmax, renormalised; "sigmoid" (AFMoE):
+    # top-k of sigmoid scores plus a learnt ``expert_bias``, weighted by
+    # the scores alone, renormalised, x route_scale
+    router: str = "softmax"
+    route_scale: float = 1.0
+    n_shared_experts: int = 0        # always-on experts of width d_ff
+    dense_ff: int = 0                # ATTN blocks' MLP width (0 -> d_ff)
     # SSM
     ssm_state: int = 0               # mamba2 d_state
     ssm_head_dim: int = 64
@@ -71,6 +78,29 @@ class ModelConfig:
     # Frontend stubs for audio/vlm: inputs are precomputed embeddings.
     embed_inputs: bool = True        # False -> forward takes (B, S, d_model) embeds
     num_prefix_embeds: int = 0       # vlm: patch embeddings prepended to text
+    # Per block application (empty = the same for every block): the
+    # attention window (0 = full) and whether q/k take rotary embeddings.
+    # Two window mechanisms, kept apart on purpose: ``layer_windows`` is a
+    # mask term on every path (the paged pool keeps the whole context, the
+    # kernels skip what the window masks); ``sliding_window`` is the JAX
+    # package's model-wide ring buffer (``cache_len``: a dense cache of
+    # min(max_len, window) slots), whose memory stays bounded at any
+    # context and which the port's parity tests hold to the reference
+    # (tests/test_torch_models.py, test_torch_dense.py).  One window path
+    # would need the paged pool to free blocks that fall out of the window.
+    layer_windows: Tuple[int, ...] = ()
+    layer_rope: Tuple[bool, ...] = ()
+    # Gated blocks (AFMoE): per-head RMSNorm of q and k, a sigmoid gate on
+    # the attention output, RMSNorm of each sublayer's output before the
+    # residual add ("sandwich")
+    gated: bool = False
+    embed_scale: float = 1.0
+    # The residual stream and the logits in float32 (every matmul's inputs
+    # stay in ``dtype``).  Where the embeddings enter far above each normed
+    # update (AFMoE's sqrt(d) scale), a bf16 stream rounds each update to
+    # the stream's last bit, and the head's bf16 output rounds near-tied
+    # top logits together.
+    float32_stream: bool = False
     # misc
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
@@ -78,6 +108,27 @@ class ModelConfig:
     dtype: str = "bfloat16"          # compute dtype
     # Sub-quadratic flag used by launch/dryrun to honour long_500k skip rules.
     subquadratic: bool = False
+
+    def __post_init__(self):
+        if self.router not in ("softmax", "sigmoid"):
+            raise ValueError(f"unknown router {self.router!r}")
+        for name in ("layer_windows", "layer_rope"):
+            n = len(getattr(self, name))
+            if n and n != self.n_layers:
+                raise ValueError(f"{self.name}: {name} has {n} entries for "
+                                 f"{self.n_layers} layers")
+        if self.layer_windows and self.sliding_window:
+            raise ValueError(f"{self.name}: layer_windows and sliding_window "
+                             f"exclude each other")
+
+    def window(self, layer: int) -> int:
+        """The attention window of block application ``layer`` (0 =
+        full)."""
+        return (self.layer_windows[layer] if self.layer_windows
+                else self.sliding_window)
+
+    def rotary(self, layer: int) -> bool:
+        return bool(self.layer_rope[layer]) if self.layer_rope else True
 
     # ---- derived ----
     @property
@@ -125,11 +176,15 @@ class ModelConfig:
         d, hd = self.d_model, self.hd
         n_q, n_kv = self.n_heads, self.n_kv_heads
         per = {}
+        # gated attention blocks: the gate, two norms of hd and two more
+        # of d
+        extra = n_q * hd * d + 2 * hd + 2 * d if self.gated else 0
         per[ATTN] = (d * (n_q + 2 * n_kv) * hd + n_q * hd * d
-                     + 3 * d * self.d_ff + 2 * d)
+                     + 3 * d * (self.dense_ff or self.d_ff) + 2 * d + extra)
         per[MOE] = (d * (n_q + 2 * n_kv) * hd + n_q * hd * d
-                    + self.n_experts * 3 * d * self.d_ff + d * self.n_experts
-                    + 2 * d)
+                    + (self.n_experts + self.n_shared_experts) * 3 * d
+                    * self.d_ff + d * self.n_experts + 2 * d + extra
+                    + (self.n_experts if self.router == "sigmoid" else 0))
         di, ds, nh = self.d_inner, self.ssm_state, self.ssm_heads
         per[MAMBA2] = (d * (2 * di + 2 * ds + nh) + di * d
                        + self.conv_kernel * (di + 2 * ds) + 3 * nh + di + d)
@@ -152,19 +207,15 @@ class ModelConfig:
         return int(n)
 
     def active_params_count(self) -> int:
-        """Params touched per token (MoE: only top_k experts) for 6*N*D."""
+        """Params touched per token (MoE: only top_k experts, no router)
+        for 6*N*D."""
         if self.n_experts and self.top_k:
-            d = self.d_model
-            dense_like = dataclasses.replace(
-                self, n_experts=0, top_k=0,
-                unit=tuple(ATTN if k == MOE else k for k in self.unit),
-                tail=tuple(ATTN if k == MOE else k for k in self.tail))
-            n_dense = dense_like.params_count()
             kinds = list(self.unit) * self.n_units + list(self.tail)
             n_moe_layers = sum(1 for k in kinds if k == MOE)
-            # dense_like counted 1 expert worth of FFN; add (top_k - 1) more
-            n_active = n_dense + n_moe_layers * (self.top_k - 1) * 3 * d * self.d_ff
-            return int(n_active)
+            idle = ((self.n_experts - self.top_k) * 3 * self.d_model
+                    * self.d_ff + self.d_model * self.n_experts
+                    + (self.n_experts if self.router == "sigmoid" else 0))
+            return int(self.params_count() - n_moe_layers * idle)
         return self.params_count()
 
 

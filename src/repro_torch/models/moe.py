@@ -1,6 +1,8 @@
-"""Mixture-of-Experts FFN (top-k routing, capacity-bounded, sort-free).
+"""Mixture-of-Experts FFN: the capacity-bounded training path and the
+dropless serving path.
 
-Port of the reference's ``models/moe.py``.  Dispatch places each (token,
+:func:`moe_ffn` (top-k routing, capacity-bounded, sort-free) is the port of
+the reference's ``models/moe.py``.  Dispatch places each (token,
 choice) pair at its rank inside its expert; pairs ranked past the capacity
 ``C`` are dropped.  The expert products run as batched matmuls over the
 (E, C) slots, as the reference leaves them to XLA.
@@ -23,6 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (constrain, is_dtensor,
                                               row_gather)
+from repro_torch.kernels import ops
+from repro_torch.serving import trace
 
 
 def capacity(n_tokens: int, n_experts: int, top_k: int, cf: float) -> int:
@@ -108,3 +112,41 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int, cf: float):
     aux = E * torch.sum(me * ce)
     zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return out.to(x.dtype), aux, zloss
+
+
+# ------------------------------------------------------------ dropless --
+# The serving forwards' experts: every (token, choice) pair computed, none
+# dropped, through ``ops.moe_experts`` (on the card a grouped kernel over
+# the experts routed to; looked up as an attribute at each call).
+
+def route(x, p, cfg):
+    """(expert ids (T, k), weights (T, k) float32) of tokens x (T, d).
+    ``softmax``: the top-k of the softmax renormalised, as ``moe_ffn``
+    routes.  ``sigmoid``: scores s = sigmoid(x W_r) in float32, the top-k
+    of s + ``expert_bias`` selected, weighted by s alone divided by their
+    sum plus 1e-20, times ``cfg.route_scale``."""
+    logits = x.float() @ p["router"].float()
+    k = cfg.top_k
+    if cfg.router == "sigmoid":
+        s = torch.sigmoid(logits)
+        ids = torch.topk(s + p["expert_bias"].float(), k, dim=-1).indices
+        w = torch.gather(s, 1, ids)
+        return ids, w / (w.sum(-1, keepdim=True) + 1e-20) * cfg.route_scale
+    probs = torch.softmax(logits, dim=-1)
+    ids = torch.sort(-probs, dim=-1, stable=True).indices[:, :k]
+    w = torch.gather(probs, 1, ids)
+    return ids, w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+
+
+def dropless(x, p, cfg):
+    """The MoE FFN of tokens x (T, d) with no capacity: the routed experts
+    (``ops.moe_experts``) plus the shared experts (``ws_*``, one SwiGLU of
+    their summed width).  Counts ``moe_calls`` and ``moe_pairs`` (T x
+    top_k) in the serving tracer, from shapes alone."""
+    ids, w = route(x, p, cfg)
+    trace.count("moe_calls")
+    trace.count("moe_pairs", ids.numel())
+    out = ops.moe_experts(x, ids, w, p["w_gate"], p["w_up"], p["w_down"])
+    if cfg.n_shared_experts:
+        out = out + F.silu(x @ p["ws_gate"]) * (x @ p["ws_up"]) @ p["ws_down"]
+    return out

@@ -125,16 +125,30 @@ def _attn_spec(cfg: C.ModelConfig, is_moe: bool) -> Dict[str, Any]:
         s["bq"] = P((nq, hd), ("heads", "head_dim"), init="zeros")
         s["bk"] = P((nkv, hd), ("kv_heads", "head_dim"), init="zeros")
         s["bv"] = P((nkv, hd), ("kv_heads", "head_dim"), init="zeros")
+    if cfg.gated:
+        s["q_norm"] = P((hd,), ("head_dim",), init="zeros")
+        s["k_norm"] = P((hd,), ("head_dim",), init="zeros")
+        s["wg"] = P((d, nq, hd), ("embed", "heads", "head_dim"))
+        s["ln1_out"] = P((d,), ("embed",), init="zeros")
+        s["ln2_out"] = P((d,), ("embed",), init="zeros")
     if is_moe:
         E = cfg.n_experts
         s["router"] = P((d, E), ("embed", None), scale=0.02)
+        if cfg.router == "sigmoid":
+            s["expert_bias"] = P((E,), (None,), init="zeros")
         s["w_gate"] = P((E, d, cfg.d_ff), ("experts", "exp_embed", "mlp"))
         s["w_up"] = P((E, d, cfg.d_ff), ("experts", "exp_embed", "mlp"))
         s["w_down"] = P((E, cfg.d_ff, d), ("experts", "mlp", "exp_embed"))
+        if cfg.n_shared_experts:
+            fs = cfg.n_shared_experts * cfg.d_ff
+            s["ws_gate"] = P((d, fs), ("embed", "mlp"))
+            s["ws_up"] = P((d, fs), ("embed", "mlp"))
+            s["ws_down"] = P((fs, d), ("mlp", "embed"))
     else:
-        s["w_gate"] = P((d, cfg.d_ff), ("embed", "mlp"))
-        s["w_up"] = P((d, cfg.d_ff), ("embed", "mlp"))
-        s["w_down"] = P((cfg.d_ff, d), ("mlp", "embed"))
+        ff = cfg.dense_ff or cfg.d_ff
+        s["w_gate"] = P((d, ff), ("embed", "mlp"))
+        s["w_up"] = P((d, ff), ("embed", "mlp"))
+        s["w_down"] = P((ff, d), ("mlp", "embed"))
     return s
 
 
@@ -286,7 +300,9 @@ def init_paged_cache(cfg, num_blocks, block_size, kv_dtype: str = "bf16",
     (kernels/quant.py): ``"bf16"`` keeps the compute dtype; ``"int8"`` /
     ``"fp8"`` store K/V quantized and add float32 ``k_scale``/``v_scale``
     sidecars ``(L_attn, num_blocks, block_size, Kh)``.  Attention-family
-    models without a window only, as in the reference."""
+    models without the model-wide ring buffer only, as in the reference;
+    per-layer windows (``cfg.layer_windows``) mask by position and keep
+    every slot."""
     bad = set(block_kinds(cfg)) - set(ATTN_KINDS)
     if bad:
         raise ValueError(f"paged KV needs attention-only models; {cfg.name} "
@@ -345,9 +361,10 @@ def write_index(write_idx, S: int, in_range: bool = False):
 
 # ----------------------------------------------------------------- blocks --
 
-def project_qkv(p, h, cfg, positions):
+def project_qkv(p, h, cfg, positions, rotary: bool = True):
     """An attention block's q (B, S, H, hd) and k, v (B, S, Kh, hd) from
-    its normed input h (B, S, d): projections, QKV bias, RoPE."""
+    its normed input h (B, S, d): projections, QKV bias, the per-head q/k
+    norms (``cfg.gated``), RoPE (unless ``rotary`` is False)."""
     B, S, d = h.shape
 
     def heads(w, n, name):
@@ -364,15 +381,23 @@ def project_qkv(p, h, cfg, positions):
     v = heads(p["wv"], cfg.n_kv_heads, "kv_heads")
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.gated:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if rotary:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _attn_block(p, x, cfg, opts, *, positions, segments, kv_cache, widx,
-                is_moe, attend_cache=True, attn_override=None):
-    """One pre-norm attention + SwiGLU (or MoE) block.  Returns (x_out,
-    (moe_aux, moe_z)).
+def _attn_block(p, x, cfg, opts, *, layer, positions, segments, kv_cache,
+                widx, is_moe, attend_cache=True, attn_override=None):
+    """One pre-norm attention + SwiGLU (or MoE) block, block application
+    ``layer`` (its window and rotary choice).  Returns (x_out, (moe_aux,
+    moe_z)).  A serving forward (a cache or an override) runs an MoE
+    dropless (``moe.dropless``); a training forward runs the
+    capacity-bounded ``moe.moe_ffn`` (softmax routers; a sigmoid router
+    runs dropless there too).
 
     kv_cache None              -> attend in-sequence, no cache
     kv_cache, attend_cache=F   -> prefill: write K/V into the cache grid but
@@ -383,12 +408,14 @@ def _attn_block(p, x, cfg, opts, *, positions, segments, kv_cache, widx,
                                   (paged and packed-verify paths)
     """
     B, S, d = x.shape
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = project_qkv(p, h, cfg, positions)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps).to(cfg.compute_dtype)
+    q, k, v = project_qkv(p, h, cfg, positions, cfg.rotary(layer))
+    window = cfg.window(layer)
     segs = (segments if segments is not None
             else torch.zeros((B, S), dtype=torch.int32, device=x.device))
     if attn_override is not None:
-        o, _ = attn_override(q, k, v, positions, segs, kv_cache, cfg, opts)
+        o, _ = attn_override(q, k, v, positions, segs, kv_cache, cfg, opts,
+                             window=window)
     elif kv_cache is not None:
         rows, slots, src = widx
         idx = (rows, slots)
@@ -400,39 +427,55 @@ def _attn_block(p, x, cfg, opts, *, positions, segments, kv_cache, widx,
             o = attention(q, kv_cache["k"], kv_cache["v"],
                           q_positions=positions, kv_positions=kv_cache["pos"],
                           q_segments=segs, kv_segments=kv_cache["seg"],
-                          window=cfg.sliding_window, q_block=opts.q_block)
+                          window=window, q_block=opts.q_block)
         else:
             o = attention(q, k, v, q_positions=positions,
                           kv_positions=positions, q_segments=segments,
-                          kv_segments=segments, window=cfg.sliding_window,
+                          kv_segments=segments, window=window,
                           q_block=opts.q_block)
     else:
         o = attention(q, k, v, q_positions=positions, kv_positions=positions,
                       q_segments=segments, kv_segments=segments,
-                      window=cfg.sliding_window, q_block=opts.q_block)
+                      window=window, q_block=opts.q_block)
     nq, hd = cfg.n_heads, cfg.hd
     # under a rule table the merged heads are laid out as the head count
     # allows (and so is their gradient, split back into heads)
     o = constrain(o.reshape(B, S, nq * hd), "batch", "seq", "heads",
                   shape=(B, S, nq))
+    if cfg.gated:
+        o = o * torch.sigmoid(h @ p["wg"].reshape(d, nq * hd))
     o = o @ p["wo"].reshape(nq * hd, d)
+    if cfg.gated:
+        o = rms_norm(o, p["ln1_out"], cfg.norm_eps)
     x = constrain(x + o, "batch", "seq", "act_embed")
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps).to(cfg.compute_dtype)
+    aux = z = 0.0
     if not is_moe:
-        x = x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
-        return constrain(x, "batch", "seq", "act_embed"), (0.0, 0.0)
-    out, aux, z = moe.moe_ffn(h.reshape(B * S, d), p["router"], p["w_gate"],
-                              p["w_up"], p["w_down"], top_k=cfg.top_k,
-                              cf=cfg.capacity_factor)
-    return constrain(x + out.reshape(B, S, d), "batch", "seq",
-                     "act_embed"), (aux, z)
+        out = swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    elif (kv_cache is not None or attn_override is not None
+          or cfg.router != "softmax") and not is_dtensor(h):
+        out = moe.dropless(h.reshape(B * S, d), p, cfg).reshape(B, S, d)
+    else:
+        if cfg.router != "softmax" or cfg.n_shared_experts:
+            raise NotImplementedError(
+                f"{cfg.name}: the capacity-bounded MoE (training forwards of "
+                f"softmax models, sharded forwards) routes by softmax with "
+                f"no shared expert; this model has router {cfg.router!r} "
+                f"and {cfg.n_shared_experts} shared")
+        out, aux, z = moe.moe_ffn(h.reshape(B * S, d), p["router"],
+                                  p["w_gate"], p["w_up"], p["w_down"],
+                                  top_k=cfg.top_k, cf=cfg.capacity_factor)
+        out = out.reshape(B, S, d)
+    if cfg.gated:
+        out = rms_norm(out, p["ln2_out"], cfg.norm_eps)
+    return constrain(x + out, "batch", "seq", "act_embed"), (aux, z)
 
 
 def _recurrent_block(kind, p, x, cfg, opts, cache, slot):
     """A Mamba2 / mLSTM / sLSTM block.  ``cache`` None runs from a zero
     state; otherwise block ``slot``'s state is read and updated in
     place."""
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    h = rms_norm(x, p["ln"], cfg.norm_eps).to(cfg.compute_dtype)
     if kind == C.MAMBA2:
         leaves = ("ssd", "conv")
         st = None if cache is None else mamba2.Mamba2State(
@@ -468,15 +511,17 @@ def _run_stack(params, x, cfg, opts, *, positions, segments, cache, widx,
 
     def blocks(x, lo, hi):
         am = az = 0.0
-        for kind, slot, p in zip(kinds[lo:hi], slots[lo:hi],
-                                 params["layers"][lo:hi]):
+        for layer, kind, slot, p in zip(range(lo, hi), kinds[lo:hi],
+                                        slots[lo:hi],
+                                        params["layers"][lo:hi]):
             if kind not in ATTN_KINDS:
                 x = _recurrent_block(kind, p, x, cfg, opts, cache, slot)
                 continue
             if kind == C.SHARED_ATTN:
                 p = dict(shared, ln1=p["ln1"])  # private per-application norm
             kv = None if cache is None else layer_view(cache, slot)
-            x, (a, z) = _attn_block(p, x, cfg, opts, positions=positions,
+            x, (a, z) = _attn_block(p, x, cfg, opts, layer=layer,
+                                    positions=positions,
                                     segments=segments, kv_cache=kv,
                                     widx=widx, is_moe=kind == C.MOE,
                                     attend_cache=attend_cache,
@@ -501,16 +546,23 @@ def _run_stack(params, x, cfg, opts, *, positions, segments, cache, widx,
 
 # ------------------------------------------------------------ entrypoints --
 
+def _stream_dtype(cfg):
+    return torch.float32 if cfg.float32_stream else cfg.compute_dtype
+
+
 def _inputs_to_x(cfg, params, tokens, inputs_embeds=None,
                  prefix_embeds=None):
+    dt = _stream_dtype(cfg)
     if cfg.embed_inputs:
-        x = embed(tokens, params["embed"]).to(cfg.compute_dtype)
+        x = embed(tokens, params["embed"]).to(dt)
+        if cfg.embed_scale != 1.0:
+            x = x * cfg.embed_scale
     else:
-        x = inputs_embeds.to(cfg.compute_dtype)
+        x = inputs_embeds.to(dt)
     if prefix_embeds is not None:
         # under a rule table both parts are laid out alike first, so that
         # the concatenation needs no layout check on their values
-        pre = constrain(prefix_embeds.to(cfg.compute_dtype), "batch", "seq",
+        pre = constrain(prefix_embeds.to(dt), "batch", "seq",
                         "act_embed")
         x = torch.cat([pre, constrain(x, "batch", "seq", "act_embed")],
                       dim=1)
@@ -518,10 +570,16 @@ def _inputs_to_x(cfg, params, tokens, inputs_embeds=None,
 
 
 def _logits(cfg, params, x):
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings and cfg.embed_inputs:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps).to(cfg.compute_dtype)
+    w = (params["embed"].T if cfg.tie_embeddings and cfg.embed_inputs
+         else params["lm_head"])
+    if not cfg.float32_stream:
+        return x @ w
+    # the head's products accumulated and returned in float32
+    if not x.is_cuda:
+        return x.float() @ w.float()
+    out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def apply(params, cfg, *, tokens=None, inputs_embeds=None, prefix_embeds=None,

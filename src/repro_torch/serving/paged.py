@@ -108,7 +108,8 @@ def make_paged_decode_override(block_tables, bs: int):
     bt = block_tables.to(torch.int32)
     writes = _decode_writes(bt, bs)
 
-    def override(q, k_new, v_new, positions, segments, kv, cfg, opts):
+    def override(q, k_new, v_new, positions, segments, kv, cfg, opts,
+                 window=0):
         B = positions.shape[0]
         dst, src = writes.get(positions)
         _write_kv(kv, dst, src, k_new, v_new, positions, segments)
@@ -123,7 +124,7 @@ def make_paged_decode_override(block_tables, bs: int):
         segg = torch.where(live, kv["seg"].view(-1)[slot], -1)
         o = attention(q, kg, vg, q_positions=positions, kv_positions=posg,
                       q_segments=segments, kv_segments=segg,
-                      window=cfg.sliding_window, q_block=opts.q_block)
+                      window=window, q_block=opts.q_block)
         return o, kv
 
     return override
@@ -136,7 +137,8 @@ def make_fused_decode_override(block_tables, bs: int, fused_cfg):
     bt = block_tables.to(torch.int32).contiguous()
     writes = _decode_writes(bt, bs)
 
-    def override(q, k_new, v_new, positions, segments, kv, cfg, opts):
+    def override(q, k_new, v_new, positions, segments, kv, cfg, opts,
+                 window=0):
         dst, src = writes.get(positions)
         _write_kv(kv, dst, src, k_new, v_new, positions, segments)
         o = ops.fused_paged_decode(
@@ -144,7 +146,7 @@ def make_fused_decode_override(block_tables, bs: int, fused_cfg):
             segments.to(torch.int32).contiguous(),
             positions.to(torch.int32).contiguous(), bt,
             k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"),
-            config=fused_cfg)
+            config=fused_cfg, window=window)
         return o.to(q.dtype), kv
 
     return override
@@ -179,7 +181,8 @@ def make_paged_verify_override(q_rows, block_tables, block_ids, block_owner,
     node = (None if block_node is None
             else block_node.to(torch.int32).reshape(1, M * bs))
 
-    def override(q, k_new, v_new, positions, segments, kv, cfg, opts):
+    def override(q, k_new, v_new, positions, segments, kv, cfg, opts,
+                 window=0):
         # q/k_new/v_new: (1, Tq, ., hd); positions/segments: (1, Tq) with
         # segments = owning row (Eq. 13 segment ids); pool slots store
         # seg = 0 (valid), mirroring the dense cache
@@ -196,7 +199,7 @@ def make_paged_verify_override(q_rows, block_tables, block_ids, block_owner,
                            own, -1)[None]
         o = attention(q, kg, vg, q_positions=positions, kv_positions=posg,
                       q_segments=segments, kv_segments=segg,
-                      window=cfg.sliding_window, q_block=opts.q_block,
+                      window=window, q_block=opts.q_block,
                       q_anc=anc, kv_node=node)
         return o, kv
 
@@ -217,7 +220,8 @@ def make_fused_verify_override(q_rows, block_tables, block_ids, block_owner,
     node = (None if block_node is None
             else block_node.to(torch.int32).contiguous())
 
-    def override(q, k_new, v_new, positions, segments, kv, cfg, opts):
+    def override(q, k_new, v_new, positions, segments, kv, cfg, opts,
+                 window=0):
         dst, src = writes.get(positions)
         _write_kv(kv, dst, src, k_new, v_new, positions,
                   torch.zeros_like(segments))
@@ -226,7 +230,7 @@ def make_fused_verify_override(q_rows, block_tables, block_ids, block_owner,
             segments[0].to(torch.int32).contiguous(),
             positions[0].to(torch.int32).contiguous(), ids, owner, anc, node,
             k_scale=kv.get("k_scale"), v_scale=kv.get("v_scale"),
-            config=fused_cfg)
+            config=fused_cfg, window=window)
         return o[None].to(q.dtype), kv
 
     return override
@@ -273,7 +277,10 @@ def verify_step_paged(params, cfg, cache, *, tokens, positions, segments,
 
 def paged_compatible(cfg) -> bool:
     """Paged layout supports attention-family blocks (KV grids) only;
-    recurrent state and sliding-window ring buffers stay dense."""
+    recurrent state and the model-wide sliding-window ring buffer
+    (``cfg.sliding_window``) stay dense.  Per-layer windows
+    (``cfg.layer_windows``) keep every position in the pool and mask by
+    the position each slot stores, so they are paged."""
     kinds = set(cfg.unit) | set(cfg.tail)
     return (kinds <= {C.ATTN, C.MOE, C.SHARED_ATTN}
             and not cfg.sliding_window)

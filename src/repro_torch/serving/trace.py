@@ -121,6 +121,14 @@ def active() -> Optional[Tracer]:
     return tr if tr is not None and tr.on else None
 
 
+def count(name: str, n: int = 1):
+    """Adds ``n`` to counter ``name`` of the recording tracer's open root
+    span; nothing where no tracer is recording."""
+    tr = active()
+    if tr is not None:
+        tr.count(name, n)
+
+
 def sync():
     """A ``sync`` span around a blocking transfer between host and device,
     counted as one of the open root span's ``syncs``; the shared no-op

@@ -370,3 +370,64 @@ def test_train_step_on_cuda(gen):
     params, state, m0 = step(params, state, batch)
     params, state, m1 = step(params, state, batch)
     assert torch.isfinite(m0["loss"]) and float(m1["loss"]) < float(m0["loss"])
+
+
+@pytest.mark.parametrize("name", sorted(VERIFY_KERNELS))
+@pytest.mark.parametrize("kv", ["bf16", "f32"])
+def test_verify_window(gen, name, kv):
+    """#1 and #4 under a window at Trinity-Mini's geometry (D 128, H 32,
+    Kh 4: GQA 8), contexts on both sides of it (window 64, contexts
+    12-300), on the tensor cores (bf16) and the CUDA cores (f32)."""
+    lens = [12, 300, 63, 64, 65, 150, 40, 230]
+    a = cases.verify_inputs(gen, lens, 4, 32, 4, 128, 16, kv, False,
+                            shuffle=True)
+    a["window"] = 64
+    _check(*VERIFY_KERNELS[name], name, a)
+    # the term binds: the window's output is not the full one's
+    full = VERIFY_KERNELS[name][0](**{**a, "window": 0}).float()
+    assert (full - VERIFY_KERNELS[name][0](**a).float()).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("T,H,Kh", [(1, 12, 12), (5, 32, 4), (16, 32, 4)])
+def test_fused_decode_window(gen, T, H, Kh):
+    """#2 under a window (64) in both layouts (the split one at one query
+    token, the row one at 5 and 16), D 128, rows on both sides of it."""
+    a = cases.decode_inputs(gen, [40, 0, 130, 300], T, H, Kh, 128, 16,
+                            "bf16")
+    a["window"] = 64
+    _check(fused_paged_decode, fused_paged_decode_plain,
+           "fused_paged_decode", a)
+
+
+@pytest.mark.parametrize("T,dt,shape", [
+    (1, "bfloat16", None), (95, "bfloat16", None), (640, "bfloat16", None),
+    (95, "float32", None), (33, "bfloat16", (200, 72, 8, 2)),
+    (33, "float32", (200, 72, 8, 2))])
+def test_moe_experts_matches_plain(gen, T, dt, shape):
+    """The grouped experts at Trinity-Mini's widths (d 2048, ff 1024, 128
+    experts, top-8) for 1, 95 and 640 tokens, and at widths that end in
+    part of a 64-wide tile (d 200, ff 72, 8 experts, top-2), against the
+    plain version (the same rounding of the SwiGLU to the input type,
+    float32 sums); float32 on the CUDA cores, without TF32."""
+    from repro_torch.kernels import moe_experts as K
+    d, ff, E, k = shape or (2048, 1024, 128, 8)
+    dev, dt = torch.device("cuda"), getattr(torch, dt)
+    x = torch.randn(T, d, generator=gen).to(dev, dt)
+    ids = torch.stack([torch.randperm(E, generator=gen)[:k]
+                       for _ in range(T)]).to(dev)
+    w = torch.rand(T, k, generator=gen).to(dev)
+    ws = [(torch.randn(E, d, ff, generator=gen) / d ** 0.5).to(dev, dt)
+          for _ in range(2)]
+    wd = (torch.randn(E, ff, d, generator=gen) / ff ** 0.5).to(dev, dt)
+    before = build.LAUNCHES[K.NAME]
+    got = K.moe_experts(x, ids, w, *ws, wd)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[K.NAME] == before + 1
+    want = K.moe_experts_plain(x, ids, w, *ws, wd)
+    # the kernel and the plain version sum in float32 in other orders, and
+    # a SwiGLU value may round to the neighbouring bf16: a few bf16 ulps of
+    # the largest output; in float32 sums of 2048 terms in another order
+    # (TF32 would miss by ~1e-3)
+    tol = (2.0 ** -5 if dt == torch.bfloat16 else 1e-5) * max(
+        1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
